@@ -1,13 +1,16 @@
 """modl_tpu_torch: the PyTorch/CUDA port of modl_tpu's SOMF/OMF learner.
 
-The resident dense fit (``DictFact.fit``) runs on an NVIDIA GPU through
-plain PyTorch for the step's matrix products and one hand-written Hopper
-kernel for the sequential dictionary update (``ops/bcd.py``). The JAX
-package ``modl_tpu`` stays the reference this port is tested against;
-nothing here imports it or JAX.
+The dense fit (``DictFact``) and the streaming fMRI fit
+(``fMRIDictFact`` over ``.npy`` records) run on an NVIDIA GPU through
+plain PyTorch for the step's matrix products and hand-written Hopper
+kernels for the sequential dictionary update (``ops/bcd.py``) and the
+deferred-B segment end (``ops/ema_gemm.py``). The JAX package
+``modl_tpu`` stays the reference this port is tested against; nothing
+here imports it or JAX.
 """
 __version__ = "0.1.0"
 
 from .decomposition.dict_fact import Coder, DictFact
+from .decomposition.fmri import fMRICoder, fMRIDictFact
 
-__all__ = ["DictFact", "Coder"]
+__all__ = ["DictFact", "Coder", "fMRIDictFact", "fMRICoder"]

@@ -3,7 +3,8 @@
 Takes host values only (numpy arrays, a frozen dataclass), so nothing
 here imports JAX: ``state_from_jax`` reads the dictionary that
 ``modl_tpu.decomposition.dict_fact._state_to_host`` returns, and
-``config_from_jax`` reads the attributes of a ``modl_tpu`` SomfConfig.
+``config_from_jax`` reads the attributes of a ``modl_tpu`` SomfConfig
+and ``masker_from_jax`` those of a fitted ``modl_tpu`` ``NumpyMasker``.
 Together they let a test start both packages from the same state.
 """
 import dataclasses
@@ -12,8 +13,9 @@ import numpy as np
 import torch
 
 from .decomposition._step import SomfConfig, SomfState
+from .input_data.fmri.base import NumpyMasker
 
-__all__ = ["state_from_jax", "config_from_jax"]
+__all__ = ["state_from_jax", "config_from_jax", "masker_from_jax"]
 
 
 def state_from_jax(state_np, device='cpu', dtype=None, seed=0):
@@ -59,3 +61,16 @@ def config_from_jax(cfg):
               if name != 'use_kernel'}
     values['use_kernel'] = bool(cfg.use_pallas)
     return SomfConfig(**values)
+
+
+def masker_from_jax(masker):
+    """The port's fitted :class:`NumpyMasker` from a fitted ``modl_tpu``
+    one: its parameters (detrend, standardize, filters, dtype, ...), its
+    mask and its feature order."""
+    params = {name: getattr(masker, name)
+              for name in NumpyMasker._get_param_names()
+              if hasattr(masker, name)}
+    params['mask_img'] = np.array(masker.mask_img_, bool)
+    order = masker.feature_order_
+    params['feature_order'] = None if order is None else np.array(order)
+    return NumpyMasker(**params).fit()

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops import bcd
+from ..ops import bcd, ema_gemm
 from ..ops.enet import enet_norm, enet_projection, enet_projection_batch
 from ..ops.precision import precise
 from ..ops.sampler import (draw_subset, draw_subset_sized, draw_window,
@@ -467,8 +467,15 @@ def somf_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
                 state, X_batches[t], idx_batches[t], subsets[t], orders[t],
                 cfg, n_valid=draws.sizes[t],
                 deferred=(B0, Xseg, SC, pi, trow))
-        # one full-width pass materialises the segment's B, in place
-        state.B.addmm_(SC.T, Xseg, beta=float(pi))
+        # one full-width pass materialises the segment's B, in place:
+        # the EMA-GEMM kernel where its gate allows (off by default, as
+        # in the JAX package), else one addmm_
+        if cfg.use_kernel and ema_gemm.supported(
+                cfg.n_components, state.B.shape[1], Xseg.shape[0],
+                state.B.dtype):
+            ema_gemm.ema_accumulate(state.B, SC, Xseg, pi)
+        else:
+            state.B.addmm_(SC.T, Xseg, beta=float(pi))
         pos += L
     return state
 

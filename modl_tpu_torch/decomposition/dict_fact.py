@@ -17,11 +17,14 @@ does the same with x64 on), anything else than float32/float64 becomes
 float32. The Hopper BCD kernel runs for float32 state on CUDA; float64
 and CPU runs take the plain PyTorch path.
 
-Not ported yet: the mid-run hooks of ``set_params`` (the Gram upgrade,
-lazy 'average' allocation and the windowed re-layout) and pickling of
-device state; ``set_params`` is plain ``BaseEstimator.set_params``.
+``set_params`` carries the JAX package's mid-run hooks: the Gram
+upgrade, the lazy 'average' allocation and the windowed re-layout
+(``fMRIDictFact`` changes ``reduction`` and ``G_agg`` between epochs).
+Not ported yet: pickling of device state.
 """
+import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -144,8 +147,6 @@ class DictFact(CodingMixin, BaseEstimator):
     touching only ``n_features / reduction`` random feature columns per
     step. Parameters mirror ``modl_tpu.DictFact`` without ``mesh`` and
     ``average_offload``; ``device`` places the learner state.
-    ``set_params`` is plain ``BaseEstimator.set_params``: changing a
-    parameter mid-fit does not migrate the live state yet.
     """
 
     def __init__(self,
@@ -426,7 +427,7 @@ class DictFact(CodingMixin, BaseEstimator):
             self._resident_fit = False
         X_dev = self._ingest_features(self._to_device(X))
         for _ in range(self.n_epochs):
-            self._partial_fit_ingested(X_dev, None)
+            self._partial_fit_device(X_dev, None, ingested=True)
             perm = self.shuffle()
             X_dev = X_dev[torch.as_tensor(perm, device=X_dev.device)]
         return self
@@ -451,9 +452,16 @@ class DictFact(CodingMixin, BaseEstimator):
     def partial_fit(self, X, sample_indices=None):
         """Stream rows of X through the learner."""
         X = check_array(X, dtype=[np.float32, np.float64], order='C')
-        self._partial_fit_ingested(self._ingest_features(self._to_device(X)),
-                                   sample_indices)
+        self._partial_fit_device(self._to_device(X), sample_indices)
         return self
+
+    def _partial_fit_device(self, X_dev, sample_indices, ingested=False):
+        """partial_fit on rows already on the device in the fit's dtype
+        (the fMRI driver's entry); ``ingested``: already in the windowed
+        layout."""
+        if not ingested:
+            X_dev = self._ingest_features(X_dev)
+        self._partial_fit_ingested(X_dev, sample_indices)
 
     def _partial_fit_ingested(self, X_dev, sample_indices):
         t0 = time.perf_counter()
@@ -511,6 +519,83 @@ class DictFact(CodingMixin, BaseEstimator):
                 setattr(st, name, arr[perm_dev])
         self.labels_ = self.labels_[perm]
         return perm
+
+    def set_params(self, **params):
+        """set_params with the JAX package's mid-run hooks: G_agg='full'
+        recomputes the Gram, switching an aggregator to 'average' lazily
+        allocates its zeroed per-sample state, and the configuration is
+        rebuilt (``_migrate_layout`` moves a windowed state to the new
+        window width)."""
+        G_agg = params.pop('G_agg', None)
+        st = getattr(self, '_state', None)
+        if G_agg == 'full' and self.G_agg != 'full':
+            if st is not None:
+                Dl = st.D
+                if self._cfg.windowed:
+                    # the mirror pad duplicates head columns: drop it
+                    Dl = Dl[:, :self._n_features]
+                st.G = Dl @ Dl.T
+            self.G_agg = 'full'
+        elif G_agg is not None:
+            self.G_agg = G_agg
+        BaseEstimator.set_params(self, **params)
+        if st is not None:
+            k = self.n_components
+
+            def zeros(*shape):
+                # exact zeros: the step's unvisited->weight-1 rule makes
+                # the first update after the switch unbiased
+                return torch.zeros(shape, dtype=st.D.dtype,
+                                   device=st.D.device)
+
+            if self.Dx_agg == 'average' and st.Dx_avg is None:
+                st.Dx_avg = zeros(self._n_samples, k)
+            if self.G_agg == 'average' and st.G_avg is None:
+                st.G_avg = zeros(self._n_samples, k, k)
+        if hasattr(self, '_n_features'):
+            old_cfg = getattr(self, '_cfg', None)
+            new_cfg = self._make_config(self._n_features)
+            if old_cfg is not None and st is not None:
+                new_cfg = self._migrate_layout(old_cfg, new_cfg)
+            self._cfg = new_cfg
+        return self
+
+    def _migrate_layout(self, old_cfg, new_cfg):
+        """Reconcile the live state with a rebuilt configuration.
+
+        The windowed layout (fixed feature order + mirror pad of the
+        window width) is baked into the stored D and B, but the pad only
+        duplicates head columns. When the window width changes, the pad
+        is stripped and laid again at the new width; when the new width
+        no longer allows windows (it would cover more than half the
+        features), the state goes back to logical feature order and
+        gather subsets, with a warning. A state that was not windowed
+        stays so (no ingestion permute was applied to it)."""
+        if not old_cfg.windowed:
+            return dataclasses.replace(new_cfg, windowed=False, n_features=0)
+        st = self._state
+        n = self._n_features
+        old_width = (old_cfg.len_max if old_cfg.rand_size
+                     else old_cfg.len_subset)
+        new_width = (new_cfg.len_max if new_cfg.rand_size
+                     else new_cfg.len_subset)
+        fits = new_cfg.len_subset < n and n >= 2 * new_width
+        if fits and new_width == old_width:
+            return dataclasses.replace(new_cfg, windowed=True, n_features=n)
+        D_log, B_log = st.D[:, :n], st.B[:, :n]
+        if fits:
+            st.D = torch.cat([D_log, D_log[:, :new_width]], dim=1)
+            st.B = torch.cat([B_log, B_log[:, :new_width]], dim=1)
+            return dataclasses.replace(new_cfg, windowed=True, n_features=n)
+        warnings.warn('set_params made the subset window wider than the '
+                      'windowed layout supports; falling back to gather '
+                      'subset sampling for the rest of this fit')
+        if not np.array_equal(self._feat_perm, np.arange(n)):
+            inv = torch.as_tensor(self._feat_inv, device=st.D.device)
+            D_log, B_log = D_log[:, inv], B_log[:, inv]
+        self._feat_perm = self._feat_inv = None
+        st.D, st.B = D_log.contiguous(), B_log.contiguous()
+        return dataclasses.replace(new_cfg, windowed=False, n_features=0)
 
 
 class Coder(CodingMixin, BaseEstimator):

@@ -33,6 +33,7 @@ import functools
 
 import torch
 
+from . import _build
 from .enet import enet_norm
 
 __all__ = ["bcd_update", "bcd_update_reference", "supported", "max_block",
@@ -193,16 +194,11 @@ def bcd_update_reference(D, grad, C, comp_norm, order=None, comp_pos=False,
 
 
 @functools.cache
-def _library():
-    from . import _build
-    lib = ctypes.CDLL(str(_build.build()))
-    fn = lib.modl_bcd_update_f32
-    fn.argtypes = ([ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 3
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return lib
+def _kernel():
+    return _build.entry('modl_bcd_update_f32',
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                        + [ctypes.c_float] * 3
+                        + [ctypes.c_int, ctypes.c_void_p])
 
 
 def bcd_update(D, grad, C, comp_norm, order=None, comp_pos=False,
@@ -248,7 +244,7 @@ def bcd_update(D, grad, C, comp_norm, order=None, comp_pos=False,
     cn_out = torch.empty_like(comp_norm)
     scratch = torch.empty((4 + 2 * k) * grid, dtype=torch.float32,
                           device=D.device)
-    err = _library().modl_bcd_update_f32(
+    err = _kernel()(
         D.data_ptr(), D_out.data_ptr(), grad.data_ptr(), C.data_ptr(),
         comp_norm.data_ptr(), cn_out.data_ptr(),
         order.data_ptr() if order is not None else None,

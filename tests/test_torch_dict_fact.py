@@ -133,9 +133,9 @@ def test_transform_and_score_match_jax(code_l1, with_gram):
 
 
 def test_import_does_not_pull_jax():
-    code = ("import sys, modl_tpu_torch; "
+    code = ("import sys, modl_tpu_torch, modl_tpu_torch.decomposition.fmri; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'modl_tpu', 'sklearn')]; assert not bad, bad")
+            "('jax', 'modl_tpu', 'sklearn', 'joblib')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, '-c', code], cwd=str(REPO),
                          env=env, capture_output=True, text=True,
