@@ -12,13 +12,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    card at the main path's shapes, with both times (CUDA events);
 4. adhd70: ``DictFact(...).fit(X)`` at the ADHD-70 configuration of
    ``bench.py`` (k=70, 2,000 x 200,000 planted data, one epoch of 20
-   steps): kernel launches counted on the main path, a held-out objective
-   below the initial dictionary's, agreement with a refit through the
-   plain BCD path, and samples/s;
+   steps): BCD and EMA-GEMM launches counted on the main path (one
+   EMA-GEMM launch per deferred-B segment end) and on a gate-off control
+   (none), a held-out objective below the initial dictionary's, agreement
+   with the gate-off fit and with a refit through the plain BCD path, and
+   samples/s;
 5. hcp1024: one epoch (6 steps) of the HCP-1024 configuration through
-   the kernel block driver, with samples/s;
-6. ema_kernel: the EMA-GEMM kernel against its plain version at the two
-   fMRI segment-end shapes and a ragged one, for pi in {0, 0.9, 1};
+   the kernel block driver, with the same launch counts, gate on and off,
+   and samples/s;
+6. ema_kernel: the EMA-GEMM kernel (3xTF32 on the tensor cores) against
+   its plain version at the segment-end shapes of the fMRI legs and of the
+   resident ADHD-70 fit and at two ragged ones (one of odd width), for pi
+   in {0, 0.9, 1}, with both times, GB/s and TFLOP/s;
 7. launch_overhead: the launch-overhead probe against its plain version,
    then its benchmark (ms per step and per launch at 4, 2, 1 launches);
 8. fmri_adhd70: ``fMRIDictFact.fit`` on ``bench.py``'s streaming fMRI
@@ -26,8 +31,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    ``create_raw_rest_data(feature_order=0)``, float32 and float16, cleaned
    on the device, 3 epochs) with the EMA-GEMM kernel on the segment end:
    launch counts, record-cache hits, held-out objective below the initial
-   dictionary's and within 1e-2 of a refit with the kernel off, epoch
-   samples/s, io/cpu time and the host-to-device rate;
+   dictionary's and within 1e-2 of a refit with the kernel off, the
+   gate's A/B (``partial_fit`` ms of fits in turns with the kernel on,
+   off, off, on, and the medians), epoch samples/s, io/cpu time and the
+   host-to-device rate;
 9. fmri_hcp1024: ``exps/hcp/decompose_hcp.py``'s configuration (k=1024,
    reduction 20, batch 200) on 2 Gaussian records of 1,200 x 200,000,
    2 epochs: the same checks through the BCD block driver.
@@ -72,8 +79,9 @@ KERNEL_RTOL = 1e-4
 # held-out objective of the kernel fit vs the plain-path refit
 # (tests/test_tpu_quality.py pins the Pallas path at the same 1e-2)
 FIT_RTOL = 1e-2
-# EMA-GEMM kernel vs plain version, relative to max |ref|: f32 sums of
-# m <= 1,200 products taken in another order
+# EMA-GEMM kernel vs plain version, relative to max |ref|: the kernel's
+# 3xTF32 split (~1e-6 a product, tests/test_torch_ema_gemm.py) and f32
+# sums of m <= 1,200 products taken in another order
 EMA_RTOL = 1e-5
 EMA_PIS = (0.0, 0.9, 1.0)
 # launch-overhead probe vs plain version (both round the same products)
@@ -87,6 +95,10 @@ FMRI_ADHD_FRAMES, FMRI_RECORDS = 200, 2
 FMRI_HCP = dict(method='masked', n_components=1024, reduction=20,
                 batch_size=200, learning_rate=0.92, alpha=1e-4,
                 standardize=False, detrend=False, random_state=0)
+# rounds of on, off, off, on fits in the ADHD-70 leg's gate A/B: the
+# kernel's ~1 ms over 6 segment ends sits inside one fit's spread (~32
+# ms +- 1.5); the HCP-1024 leg's ~15 ms stands out in one round
+AB_ROUNDS_ADHD = 5
 
 
 def phase(label, **fields):
@@ -167,6 +179,42 @@ def timed_fit(estimator, X):
     return start.elapsed_time(stop) / 1e3
 
 
+@contextlib.contextmanager
+def ema_gate(enabled):
+    """The EMA-GEMM gate set to ``enabled``; the caller's setting is
+    restored after."""
+    from modl_tpu_torch.ops import ema_gemm
+    saved = ema_gemm.ENABLED
+    ema_gemm.ENABLED = enabled
+    try:
+        yield
+    finally:
+        ema_gemm.ENABLED = saved
+
+
+def resident_fit(kw, X, enabled):
+    """One ``DictFact.fit`` on the card with the EMA-GEMM gate set to
+    ``enabled``; returns (estimator, wall seconds, launches of the BCD and
+    EMA-GEMM kernels during the fit)."""
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.ops import bcd, ema_gemm
+    with ema_gate(enabled):
+        df = DictFact(**kw, device='cuda')
+        bcd.LAUNCHES = ema_gemm.LAUNCHES = 0
+        seconds = timed_fit(df, X)
+    return df, seconds, bcd.LAUNCHES, ema_gemm.LAUNCHES
+
+
+def check_resident_ema(label, cfg, n_rows, batch, on, off):
+    """EMA-GEMM launches of a one-epoch resident fit with the gate on and
+    off: one per deferred-B segment end, and none."""
+    want = expected_launches(cfg, n_rows, batch, 1, 1, 1)[1]
+    if (on, off) != (want, 0) or want == 0:
+        raise RuntimeError(f'{label}: {on} EMA-GEMM launches with the gate '
+                           f'on and {off} off, expected {want} and 0')
+    return want
+
+
 def ema_case(ema_gemm, k, m, n, seed):
     """The EMA-GEMM kernel against its plain version at one shape, for
     every pi; returns (max abs error, kernel ms, plain ms) at pi=0.9."""
@@ -208,10 +256,13 @@ def ema_case(ema_gemm, k, m, n, seed):
         plain_ms = cuda_ms(
             lambda: ema_gemm.ema_accumulate_reference(Bt, SC, X, 0.9), reps)
     gflop = 2.0 * k * m * n / 1e9
+    gbyte = 4.0 * (m * n + 2 * k * n) / 1e9     # X read, B read and written
     phase('ema_kernel', shape=f'k{k}xm{m}xn{n}', ms=f'{ms:.4f}',
           plain_ms=f'{plain_ms:.4f}',
           kernel_tflops=f'{gflop / ms:.2f}',
-          plain_tflops=f'{gflop / plain_ms:.2f}')
+          plain_tflops=f'{gflop / plain_ms:.2f}',
+          kernel_GBps=f'{gbyte / ms * 1e3:.0f}',
+          plain_GBps=f'{gbyte / plain_ms * 1e3:.0f}')
     return err, ms, plain_ms
 
 
@@ -278,8 +329,7 @@ def fmri_fit(records, masker, kw, n_epochs, enabled):
     import torch
     from modl_tpu_torch.decomposition.fmri import fMRIDictFact
     from modl_tpu_torch.ops import bcd, ema_gemm
-    ema_gemm.ENABLED = enabled
-    try:
+    with ema_gate(enabled):
         fd = fMRIDictFact(mask=masker, n_epochs=n_epochs, device='cuda',
                           **kw)
         bcd.LAUNCHES = ema_gemm.LAUNCHES = 0
@@ -287,9 +337,25 @@ def fmri_fit(records, masker, kw, n_epochs, enabled):
         fd.fit(records)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        return fd, seconds, bcd.LAUNCHES, ema_gemm.LAUNCHES
-    finally:
-        ema_gemm.ENABLED = False
+    return fd, seconds, bcd.LAUNCHES, ema_gemm.LAUNCHES
+
+
+def gate_ab(records, masker, kw, n_epochs, rounds, on=(), off=()):
+    """The gate's A/B: the given fits with the kernel on and off, then
+    ``rounds`` turns of fresh fits on, off, off, on. Returns the phase
+    fields: each fit's ``partial_fit`` ms and the medians."""
+    ms = {True: [fd.dict_fact_.time_ * 1e3 for fd in on],
+          False: [fd.dict_fact_.time_ * 1e3 for fd in off]}
+    for _ in range(rounds):
+        for enabled in (True, False, False, True):
+            fd = fmri_fit(records, masker, kw, n_epochs, enabled)[0]
+            ms[enabled].append(fd.dict_fact_.time_ * 1e3)
+    med = {enabled: float(np.median(v)) for enabled, v in ms.items()}
+    return dict(partial_fit_ms_on='/'.join(f'{t:.2f}' for t in ms[True]),
+                partial_fit_ms_off='/'.join(f'{t:.2f}' for t in ms[False]),
+                partial_fit_median_ms_on=f'{med[True]:.2f}',
+                partial_fit_median_ms_off=f'{med[False]:.2f}',
+                gate_on_no_slower=med[True] <= med[False])
 
 
 def h2d_rates(rec):
@@ -307,6 +373,11 @@ def h2d_rates(rec):
         out.append(rec.nbytes / 1e6 / (time.perf_counter() - t0))
         del dev
     return out
+
+
+def dict_diff(fd, off):
+    """Largest difference between the dictionaries of two fits."""
+    return float(np.abs(fd.components_ - off.components_).max())
 
 
 def check_fmri(label, fd, launches, want, cache_hits, obj, obj_off,
@@ -381,6 +452,9 @@ def fmri_adhd70(workdir):
                                  FMRI_ADHD['batch_size'], FMRI_RECORDS, 3,
                                  bcd_blocks(cfg))
         off, _, _, off_ema = fmri_fit(train, masker, FMRI_ADHD, 3, False)
+        # fd runs the per-record callback: the A/B takes fresh fits
+        ab = gate_ab(train, masker, FMRI_ADHD, 3, AB_ROUNDS_ADHD,
+                     off=(off,))
         obj_off = off.score(test)
         rel = check_fmri(f'fmri_adhd70 {tag}', fd, launches, want,
                          2 * FMRI_RECORDS, obj, obj_off, obj0)
@@ -392,12 +466,15 @@ def fmri_adhd70(workdir):
               cache=fd.record_cache_info_['hits'],
               objective=f'{obj:.6g}', objective_init=f'{obj0:.6g}',
               objective_kernel_off=f'{obj_off:.6g}', rel_diff=f'{rel:.3e}',
+              dict_max_abs_diff=f'{dict_diff(fd, off):.3e}',
               fit_samples_per_s=f'{n_samples / dt1:.1f}',
               first_epoch_samples_per_s=f'{n_samples / first:.1f}',
               steady_epoch_samples_per_s=f'{2 * n_samples / steady:.1f}',
               compute_samples_per_s=(
                   f'{3 * n_samples / fd.dict_fact_.time_:.1f}'),
-              io_s=f'{fd1.io_time_:.4f}', cpu_s=f'{fd1.cpu_time_:.4f}',
+              compute_samples_per_s_kernel_off=(
+                  f'{3 * n_samples / off.dict_fact_.time_:.1f}'),
+              **ab, io_s=f'{fd1.io_time_:.4f}', cpu_s=f'{fd1.cpu_time_:.4f}',
               h2d_pageable_MBps=f'{pageable:.1f}',
               h2d_pinned_MBps=f'{pinned:.1f}')
         if ema_launches is None:
@@ -426,6 +503,7 @@ def fmri_hcp1024(workdir, X0):
     want = expected_launches(cfg, HCP_SAMPLES, FMRI_HCP['batch_size'],
                              FMRI_RECORDS, 2, blocks)
     off, off_seconds, _, _ = fmri_fit(train, masker, FMRI_HCP, 2, False)
+    ab = gate_ab(train, masker, FMRI_HCP, 2, 1, on=(fd,), off=(off,))
     obj_off = off.score(test)
     rel = check_fmri('fmri_hcp1024', fd, launches, want, FMRI_RECORDS, obj,
                      obj_off)
@@ -436,12 +514,13 @@ def fmri_hcp1024(workdir, X0):
           blocks_per_step=blocks, ema_launches=launches[1],
           segment_ends=want[1], cache=fd.record_cache_info_['hits'],
           objective=f'{obj:.6g}', objective_kernel_off=f'{obj_off:.6g}',
-          rel_diff=f'{rel:.3e}', fit_samples_per_s=f'{n / seconds:.1f}',
+          rel_diff=f'{rel:.3e}', dict_max_abs_diff=f'{dict_diff(fd, off):.3e}',
+          fit_samples_per_s=f'{n / seconds:.1f}',
           fit_samples_per_s_kernel_off=f'{n / off_seconds:.1f}',
           compute_samples_per_s=f'{n / fd.dict_fact_.time_:.1f}',
           compute_samples_per_s_kernel_off=(
               f'{n / off.dict_fact_.time_:.1f}'),
-          io_s=f'{fd.io_time_:.4f}', cpu_s=f'{fd.cpu_time_:.4f}')
+          **ab, io_s=f'{fd.io_time_:.4f}', cpu_s=f'{fd.cpu_time_:.4f}')
     shutil.rmtree(d, ignore_errors=True)
 
 
@@ -489,11 +568,14 @@ def main():
     obj0 = DictFact(**ADHD, device='cuda').prepare(
         n_samples=ADHD_SAMPLES, X=X).score(X_test)
     DictFact(**ADHD, device='cuda').fit(X)          # warm-up epoch
-    bcd.LAUNCHES = 0
-    df = DictFact(**ADHD, device='cuda')
-    seconds = timed_fit(df, X)
-    launches = bcd.LAUNCHES
+    df, seconds, launches, ema_on = resident_fit(ADHD, X, True)
     obj = df.score(X_test)
+    # gate-off control: the BCD kernel alone
+    off, _, off_launches, ema_off = resident_fit(ADHD, X, False)
+    obj_off = off.score(X_test)
+    ends = check_resident_ema('ADHD-70', df._cfg, ADHD_SAMPLES,
+                              ADHD['batch_size'], ema_on, ema_off)
+    rel_off = abs(obj - obj_off) / abs(obj_off)
 
     class PlainDictFact(DictFact):
         def _make_config(self, *args, **kwargs):
@@ -505,51 +587,65 @@ def main():
     obj_plain = plain.score(X_test)
     rel = abs(obj - obj_plain) / abs(obj_plain)
     phase('adhd70', launches=launches, steps=ADHD_SAMPLES // 100,
+          ema_launches=ema_on, segment_ends=ends,
+          ema_launches_gate_off=ema_off,
           objective=f'{obj:.6g}', objective_init=f'{obj0:.6g}',
           objective_plain=f'{obj_plain:.6g}', rel_diff=f'{rel:.3e}',
+          objective_gate_off=f'{obj_off:.6g}',
+          rel_diff_gate_off=f'{rel_off:.3e}',
           fit_samples_per_s=f'{ADHD_SAMPLES / seconds:.1f}',
           epoch_samples_per_s=f'{ADHD_SAMPLES / df.time_:.1f}',
+          epoch_samples_per_s_gate_off=f'{ADHD_SAMPLES / off.time_:.1f}',
           plain_fit_samples_per_s=f'{ADHD_SAMPLES / plain_seconds:.1f}')
-    if launches < ADHD_SAMPLES // 100:
-        raise RuntimeError(f'ADHD-70 fit launched the kernel {launches} '
-                           'times, expected one per step')
+    if min(launches, off_launches) < ADHD_SAMPLES // 100:
+        raise RuntimeError(f'ADHD-70 fits launched the kernel {launches} '
+                           f'and {off_launches} times, expected one per '
+                           'step')
     if not (math.isfinite(obj) and obj < obj0):
         raise RuntimeError(f'ADHD-70 objective {obj} not below the '
                            f'initial {obj0}')
-    if not rel < FIT_RTOL:
-        raise RuntimeError(f'kernel and plain fits differ: rel {rel}')
-    del X, X_test, df, plain
+    if not (rel < FIT_RTOL and rel_off < FIT_RTOL):
+        raise RuntimeError(f'kernel and plain fits differ: rel {rel} '
+                           f'(plain path), {rel_off} (gate off)')
+    del X, X_test, df, off, plain
 
     # 5. HCP-1024: the block driver
     X = np.random.RandomState(0).randn(HCP_SAMPLES, N_FEATURES).astype(
         np.float32)
     DictFact(**HCP, device='cuda').fit(X)           # warm-up epoch
-    bcd.LAUNCHES = 0
-    df = DictFact(**HCP, device='cuda')
-    seconds = timed_fit(df, X)
-    hcp_launches = bcd.LAUNCHES
+    df, seconds, hcp_launches, ema_on = resident_fit(HCP, X, True)
+    off, _, off_launches, ema_off = resident_fit(HCP, X, False)
     cfg = df._cfg
+    ends = check_resident_ema('HCP-1024', cfg, HCP_SAMPLES,
+                              HCP['batch_size'], ema_on, ema_off)
     steps = HCP_SAMPLES // HCP['batch_size']
     blocks = -(-cfg.n_components // bcd.max_block(cfg.len_max,
                                                   torch.float32))
     D = df._state.D
     phase('hcp1024', launches=hcp_launches, steps=steps,
           blocks_per_step=blocks, len_max=cfg.len_max,
+          ema_launches=ema_on, segment_ends=ends,
+          ema_launches_gate_off=ema_off,
           fit_samples_per_s=f'{HCP_SAMPLES / seconds:.1f}',
-          epoch_samples_per_s=f'{HCP_SAMPLES / df.time_:.1f}')
-    if hcp_launches != steps * blocks or blocks < 2:
-        raise RuntimeError(f'HCP-1024 launched {hcp_launches} kernels, '
-                           f'expected {steps} x {blocks} (block driver)')
+          epoch_samples_per_s=f'{HCP_SAMPLES / df.time_:.1f}',
+          epoch_samples_per_s_gate_off=f'{HCP_SAMPLES / off.time_:.1f}')
+    if (hcp_launches, off_launches) != (steps * blocks,) * 2 or blocks < 2:
+        raise RuntimeError(f'HCP-1024 launched {hcp_launches} and '
+                           f'{off_launches} kernels, expected {steps} x '
+                           f'{blocks} (block driver)')
     if not bool(torch.isfinite(D).all()):
         raise RuntimeError('HCP-1024 dictionary not finite')
-    del df, D
+    del df, off, D
 
     # 6. the EMA-GEMM kernel against its plain version
     from modl_tpu_torch.ops.sampler import binomial_len_max
     n_adhd = N_FEATURES + binomial_len_max(N_FEATURES, N_FEATURES // 12)
     n_hcp = N_FEATURES + binomial_len_max(N_FEATURES, N_FEATURES // 20)
+    # fMRI ADHD-70, HCP-1024 (both fits), resident ADHD-70 (7 x 100 rows),
+    # ragged (even and odd width)
     ema = [ema_case(ema_gemm, *shape, seed=10 + i) for i, shape in enumerate(
-        [(70, 200, n_adhd), (1024, 1200, n_hcp), (37, 13, 1000)])]
+        [(70, 200, n_adhd), (1024, 1200, n_hcp), (70, 700, n_adhd),
+         (37, 13, 1000), (37, 13, 1001)])]
     ema_err = max(r[0] for r in ema)
 
     # 7. the launch-overhead probe and its benchmark

@@ -91,10 +91,10 @@ def load():
     return ctypes.CDLL(str(build()))
 
 
-def entry(name, argtypes):
-    """Entry point ``name`` of the library with its C signature set
-    (every entry point returns a cudaError_t as an int)."""
+def entry(name, argtypes, restype=ctypes.c_int):
+    """Entry point ``name`` of the library with its C signature set (a
+    kernel's entry point returns a cudaError_t as an int)."""
     fn = getattr(load(), name)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn

@@ -6,22 +6,34 @@ segments end with one full-width materialisation of the surrogate
 statistics, ``B = pi * B0 + SC^T Xseg`` over the (k, n_stored) state;
 this module fuses the decay, the product and the accumulate into one
 pass that reads X once and reads and writes B once
-(``csrc/ema_gemm.cu``). Inputs and accumulation are float32, as the
-port's plain path runs them under ``precision.full_f32()``; the TPU
-kernel's single bf16 pass was a limitation of Mosaic and is not kept.
+(``csrc/ema_gemm.cu``). The kernel runs the product on the tensor cores
+in 3xTF32: each float32 operand is split into a TF32 ``hi`` and a TF32
+``lo = x - hi`` and three TF32 products (``hi*lo``, ``lo*hi``,
+``hi*hi``) are summed in float32 (a fresh tensor-core accumulator for
+each window of 16 or 64 rows of m, added into a float32 sum), which
+keeps ~21 bits of the inputs (relative error ~1e-6 a product; a numpy
+emulation in tests/test_torch_ema_gemm.py bounds the result at 1e-6 of
+``max |SC^T X|`` at the segment-end shapes). That is not single-pass TF32,
+which ``precision.py`` rules out; the plain version runs in full float32
+under ``precision.full_f32()``. The TPU kernel's single bf16 pass was a
+limitation of Mosaic and is not kept.
 
-As in the JAX package the step routes here only when ``ENABLED`` is set
-(off by default) and :func:`supported` accepts the shape. The TPU gate's
+The step routes here only when ``ENABLED`` is set and :func:`supported`
+accepts the shape. ``ENABLED`` is on by default, unlike the JAX
+package's gate: on the H100 the kernel beats the plain ``addmm_`` at
+every segment-end shape of the fits, and their ``partial_fit`` is no
+slower with it on (``PERF.md``, section 6). The TPU gate's
 VMEM budget and ``k % 8`` rule have no counterpart: the Hopper kernel
-tiles B in fixed (64, 128) blocks with masked edges, so it takes any
-shape. What it needs is float32 data on a CUDA device, contiguous;
-``supported`` checks the flag and the dtype, the step's
+tiles atoms in widths of 8 up to 128 and masks the ragged edges, so it
+takes any shape. What it needs is float32 data on a CUDA device,
+contiguous; ``supported`` checks the flag and the dtype, the step's
 ``cfg.use_kernel`` the device, and :func:`ema_accumulate` raises on a
 CUDA tensor it cannot take.
 
 ``ema_accumulate`` runs the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches.
+tensors it launches the kernel (a split of SC into scratch, then the
+product) or raises. ``LAUNCHES`` counts calls that launched it, one per
+segment end.
 """
 import ctypes
 import functools
@@ -33,11 +45,12 @@ from . import _build
 __all__ = ["ema_accumulate", "ema_accumulate_reference", "supported",
            "ENABLED", "LAUNCHES"]
 
-# route the segment end through the kernel (off by default, as in the
-# JAX package; chip_smoke.py turns it on and compares both settings)
-ENABLED = False
+# route the segment end through the kernel (chip_smoke.py compares the
+# fits with it on and off)
+ENABLED = True
 
-# kernel launches made by ``ema_accumulate`` (read by chip_smoke.py)
+# calls of ``ema_accumulate`` that launched the kernel (read by
+# chip_smoke.py)
 LAUNCHES = 0
 
 
@@ -59,7 +72,13 @@ def _kernel():
     return _build.entry('modl_ema_accumulate_f32',
                         [ctypes.c_void_p] * 3
                         + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_void_p])
+                           ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+
+
+@functools.cache
+def _scratch_floats():
+    return _build.entry('modl_ema_scratch_floats',
+                        [ctypes.c_int, ctypes.c_int], ctypes.c_int64)
 
 
 def ema_accumulate(B, SC, X, pi):
@@ -68,7 +87,8 @@ def ema_accumulate(B, SC, X, pi):
     B (k, n), SC (m, k), X (m, n); ``pi`` a host scalar. CPU tensors run
     :func:`ema_accumulate_reference`; CUDA tensors launch the Hopper
     kernel on the current stream (no synchronisation) and raise on
-    anything it does not take."""
+    anything it does not take. The kernel's result differs from the plain
+    version's by the 3xTF32 split (~1e-6 of ``max |SC^T X|``)."""
     global LAUNCHES
     if B.device.type == 'cpu':
         return ema_accumulate_reference(B, SC, X, pi)
@@ -85,8 +105,12 @@ def ema_accumulate(B, SC, X, pi):
         if tuple(t.shape) != shapes[name] or not t.is_contiguous():
             raise ValueError(f'ema_accumulate: {name} must be a contiguous '
                              f'{shapes[name]} tensor, got {tuple(t.shape)}')
+    # the split SC^T (hi, lo), on B's device and the current stream
+    scratch = torch.empty(_scratch_floats()(k, m), dtype=torch.float32,
+                          device=B.device)
     err = _kernel()(B.data_ptr(), SC.data_ptr(), X.data_ptr(), k, n, m,
-                    float(pi), torch.cuda.current_stream(B.device).cuda_stream)
+                    float(pi), scratch.data_ptr(),
+                    torch.cuda.current_stream(B.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'ema_accumulate: kernel launch failed with '
                            f'cudaError {err} at (k={k}, n={n}, m={m})')

@@ -14,6 +14,14 @@ the maintained Gram under ``G_agg='full'``) are therefore exact f32
 like every other contraction; the JAX package has to request
 ``Precision.HIGHEST`` for them explicitly. CPU and float64 paths are
 unaffected by the switches.
+
+The EMA-GEMM kernel (``csrc/ema_gemm.cu``, the deferred-B segment end)
+runs on the tensor cores in 3xTF32: each float32 operand is split into a
+TF32 ``hi`` and a TF32 ``lo = x - hi`` and three TF32 products
+(``hi*lo + lo*hi + hi*hi``) are summed in float32, which keeps ~21 bits
+of the inputs, at or above 'high'. That is not single-pass TF32, and the
+"never TF32" rule still holds for every cuBLAS call, the plain segment
+end's ``addmm_`` included.
 """
 import functools
 from contextlib import contextmanager

@@ -6,10 +6,13 @@
   The Pallas kernel's dot is a single bf16 pass, so the inputs are
   rounded to bf16-exact values first and the two products agree to f32
   roundoff (1e-5);
-- the gate is off by default and asks for float32;
+- the gate is on by default and asks for float32;
 - ``somf_scan`` with the segment end routed through ``ema_accumulate``
   equals the ``addmm_`` path at float64 (1e-12: mul-then-add against a
-  fused beta).
+  fused beta);
+- a numpy emulation of the Hopper kernel's 3xTF32 split stays within a
+  tenth of the bound chip_smoke.py holds the kernel to on the card, at
+  the segment-end contraction lengths, where one TF32 pass does not.
 The Hopper kernel itself runs only on the card (chip_smoke.py).
 """
 import dataclasses
@@ -61,8 +64,10 @@ def test_matches_pallas_kernel(k, n, m, pi):
     assert ema_gemm.LAUNCHES == launches          # CPU: no kernel launch
 
 
-def test_gate_is_off_by_default():
-    assert ema_gemm.ENABLED is False
+def test_gate_is_on_by_default(monkeypatch):
+    assert ema_gemm.ENABLED is True
+    assert ema_gemm.supported(1024, 210_780, 1200, torch.float32)
+    monkeypatch.setattr(ema_gemm, 'ENABLED', False)
     assert not ema_gemm.supported(1024, 210_780, 1200, torch.float32)
 
 
@@ -125,3 +130,48 @@ def test_routed_segment_end_matches_addmm(monkeypatch):
                                    to_np(getattr(out[False], name)),
                                    rtol=1e-12, atol=1e-12, err_msg=name)
     assert to_np(out[True].B).any()
+
+
+# chip_smoke.py's bound on the kernel, relative to max |ref|
+EMA_RTOL = 1e-5
+
+
+def _tf32(a):
+    """float32 -> TF32 by truncation: the low 13 mantissa bits cleared."""
+    return (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_product(SC, X, passes):
+    """SC^T X as the kernel forms it: per row of m, the TF32 products
+    (exact in float32) added into a float32 accumulator, the small terms
+    first (``passes`` 3: hi*lo, lo*hi, hi*hi; 1: hi*hi alone); each window
+    of rows (16 where k <= 72, else 64, as csrc/ema_gemm.cu's Cfg) in a
+    fresh accumulator that is then added into a float32 sum."""
+    sc_hi, x_hi = _tf32(SC), _tf32(X)
+    sc_lo, x_lo = _tf32(SC - sc_hi), _tf32(X - x_hi)
+    terms = [(sc_hi, x_lo), (sc_lo, x_hi), (sc_hi, x_hi)][3 - passes:]
+    (m, k), win = SC.shape, 16 if SC.shape[1] <= 72 else 64
+    total = np.zeros((k, X.shape[1]), np.float32)
+    for r0 in range(0, m, win):
+        acc = np.zeros_like(total)
+        for r in range(r0, min(m, r0 + win)):
+            for a, b in terms:
+                acc += np.outer(a[r], b[r])
+        total += acc
+    return total
+
+
+@pytest.mark.parametrize('k,m', [(70, 200), (70, 700), (70, 1200),
+                                 (1024, 1200), (37, 13)])
+def test_tf32x3_split_error_bound(k, m):
+    # the segment-end shapes (fMRI and resident ADHD-70, HCP-1024) and the
+    # ragged one, on a narrow slice of n; data as chip_smoke.py draws it
+    rng = np.random.default_rng(k + m)
+    SC = (rng.standard_normal((m, k)) / np.sqrt(m)).astype(np.float32)
+    X = rng.standard_normal((m, 24)).astype(np.float32)
+    ref = SC.astype(np.float64).T @ X.astype(np.float64)
+    scale = np.abs(ref).max()
+    err = np.abs(_split_product(SC, X, 3) - ref).max()
+    assert err < EMA_RTOL / 10 * scale
+    # one TF32 pass does not hold the bound: the test tells them apart
+    assert np.abs(_split_product(SC, X, 1) - ref).max() > EMA_RTOL * scale
