@@ -9,7 +9,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 2. build: compile ``modl_tpu_torch/csrc/*.cu`` from this checkout (one
    ``nvcc`` per source, all started together);
 3. kernel: the Hopper BCD kernel against its plain PyTorch version on the
-   card at the main path's shapes, with both times (CUDA events);
+   card at the main path's shapes, the elastic-net ball, rows that do
+   not shrink and a row too wide to stage in shared memory, with both
+   times (CUDA events), the bound, the grid-wide exchanges a call made
+   and a second launch held bitwise equal to the first; then the grid
+   barrier alone (cooperative groups' and the kernel's own), in us;
 4. adhd70: ``DictFact(...).fit(X)`` at the ADHD-70 configuration of
    ``bench.py`` (k=70, 2,000 x 200,000 planted data, one epoch of 20
    steps): BCD and EMA-GEMM launches counted on the main path (one
@@ -68,10 +72,21 @@ HCP = dict(n_components=1024, reduction=20, code_alpha=3e-4,
            subset_sampling='window')
 HCP_SAMPLES = 1200
 
-# kernel vs plain version: (k, s, comp_l1_ratio, comp_pos)
+# kernel vs plain version: (k, s, comp_l1_ratio, comp_pos); k None is
+# the most rows one call takes at that width (a row read from L2, not
+# staged in shared memory)
 KERNEL_CASES = [(70, 17655, 1.0, False), (256, 10780, 1.0, False),
                 (64, 4096, 0.0, False), (64, 4096, 0.5, False),
-                (64, 4096, 1.0, True)]
+                (64, 4096, 1.0, True), (70, 17655, 0.5, False),
+                (None, 200_000, 1.0, False)]
+# the same with a zero gradient and a budget no row reaches: no row
+# shrinks, so one exchange an atom is the whole cost
+NO_SHRINK_CASES = [(70, 17655, 1.0, False)]
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, f32
+# flop/s outside the tensor cores, 3xTF32 flop/s (495 / 3)
+HBM_BPS, F32_FLOPS, TF32X3_FLOPS = 3.35e12, 67e12, 495e12 / 3
+# grid barriers a call of the barrier probe times
+BARRIERS = 2000
 # both run the same sequential f32 recurrence with sums taken in another
 # order; the l1 Newton branches on sums, so agreement is held at a
 # relative 1e-4 of the rows' scale rather than at roundoff
@@ -118,20 +133,40 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed):
+def bcd_bound(k, s):
+    """(ms, 'bytes' or 'operations'): the least time of one BCD call on
+    an H100 SXM. Bytes: D, grad, C and the norms read once, D and the
+    norms written once; operations: 2 k^2 s flops for the first residual
+    and 2 k^2 s for the rank-1 updates (f32, outside the tensor cores;
+    the projection's passes over the rows are left out)."""
+    t_bytes = 4 * (3 * k * s + k * k + 3 * k) / HBM_BPS
+    t_ops = 4 * k * k * s / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed, shrink=True):
     import torch
     from modl_tpu_torch.ops.enet import enet_scale
+    if k is None:
+        k = bcd.max_block(s, torch.float32)
     g = torch.Generator(device='cuda').manual_seed(seed)
     dev = dict(device='cuda', dtype=torch.float32, generator=g)
     D = enet_scale(torch.randn(k, s, **dev), l1_ratio, radius=1.0)
     A = torch.randn(k, k, **dev)
     C = A @ A.T / k + 0.1 * torch.eye(k, device='cuda')
-    grad = C @ (D + 0.3 * torch.randn(k, s, **dev) / math.sqrt(s))
-    cn = torch.zeros(k, device='cuda')
+    if shrink:
+        grad = C @ (D + 0.3 * torch.randn(k, s, **dev) / math.sqrt(s))
+        cn = torch.zeros(k, device='cuda')
+    else:
+        grad = torch.zeros(k, s, device='cuda')
+        cn = torch.full((k,), 1e4, device='cuda')
     order = torch.randperm(k, device='cuda', generator=g)
     args = (D, grad, C, cn, order)
     kw = dict(comp_pos=comp_pos, l1_ratio=l1_ratio)
     Dk, cnk = bcd.bcd_update(*args, **kw)
+    exchanges = bcd.last_exchanges()
+    Dk2, cnk2 = bcd.bcd_update(*args, **kw)
     torch.cuda.synchronize()
     Dr, cnr = bcd.bcd_update_reference(*args, **kw)
     torch.cuda.synchronize()
@@ -142,17 +177,54 @@ def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed):
     err_cn = float((cnk - cnr).abs().max())
     budget = float((cn + (D.abs() * (l1_ratio + (1 - l1_ratio) * D.abs()))
                     .sum(1)).abs().max())
-    ok = err <= KERNEL_RTOL * scale and err_cn <= KERNEL_RTOL * budget
+    bitwise = bool(torch.equal(Dk, Dk2) and torch.equal(cnk, cnk2))
+    ok = (err <= KERNEL_RTOL * scale and err_cn <= KERNEL_RTOL * budget
+          and bitwise and exchanges <= k + 2)
     ms = cuda_ms(lambda: bcd.bcd_update(*args, **kw), 10)
     plain_ms = cuda_ms(lambda: bcd.bcd_update_reference(*args, **kw), 2)
+    bound_ms, bound_by = bcd_bound(k, s)
     phase('kernel', shape=f'{k}x{s}', l1_ratio=l1_ratio, comp_pos=comp_pos,
+          shrink=shrink, staged=bcd._plan(k, s)[3],
           max_abs_err=f'{err:.3e}', rel_err=f'{err / scale:.3e}',
-          cn_abs_err=f'{err_cn:.3e}', ms=f'{ms:.4f}',
-          plain_ms=f'{plain_ms:.4f}', ok=ok)
+          cn_abs_err=f'{err_cn:.3e}', exchanges=exchanges,
+          bitwise_repeat=bitwise, ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{bound_ms:.4f}', bound_by=bound_by,
+          share_of_bound=f'{bound_ms / ms:.4f}', ok=ok)
     if not ok:
-        raise RuntimeError(f'kernel disagrees with its plain version at '
+        raise RuntimeError(f'kernel disagrees with its plain version, with '
+                           f'itself or with one exchange an atom at '
                            f'({k}, {s}, l1={l1_ratio}, pos={comp_pos})')
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def barrier_phase(grid):
+    """Microseconds per grid barrier alone, on a cooperative grid of
+    ``grid`` blocks of the BCD kernel's size: cooperative groups'
+    grid.sync and the kernel's own counter barrier."""
+    import ctypes
+
+    import torch
+    from modl_tpu_torch.ops import _build
+    probe = _build.entry('modl_bcd_barrier_probe',
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    counter = torch.zeros(1, dtype=torch.int32, device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(n, hand):
+        counter.zero_()
+        err = probe(n, hand, grid, counter.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f'barrier probe failed with cudaError {err}')
+
+    us = {}
+    for hand, label in ((0, 'grid_sync'), (1, 'counter')):
+        run(BARRIERS, hand)                          # warm-up
+        t_n = cuda_ms(lambda: run(BARRIERS, hand), 3)
+        t_0 = cuda_ms(lambda: run(0, hand), 3)
+        us[label] = (t_n - t_0) * 1e3 / BARRIERS
+    phase('barrier', blocks=grid, barriers=BARRIERS,
+          **{f'us_per_{key}': f'{v:.3f}' for key, v in us.items()})
+    return us
 
 
 def adhd_data():
@@ -217,7 +289,8 @@ def check_resident_ema(label, cfg, n_rows, batch, on, off):
 
 def ema_case(ema_gemm, k, m, n, seed):
     """The EMA-GEMM kernel against its plain version at one shape, for
-    every pi; returns (max abs error, kernel ms, plain ms) at pi=0.9."""
+    every pi; returns (max abs error, kernel ms, plain ms, bound ms,
+    what bounds it, ms of the library's ``addmm_``) at pi=0.9."""
     import torch
     from modl_tpu_torch.ops.precision import full_f32
     g = torch.Generator(device='cuda').manual_seed(seed)
@@ -255,21 +328,29 @@ def ema_case(ema_gemm, k, m, n, seed):
     with full_f32():
         plain_ms = cuda_ms(
             lambda: ema_gemm.ema_accumulate_reference(Bt, SC, X, 0.9), reps)
+        # one library call computing the same function
+        library_ms = cuda_ms(lambda: Bt.addmm_(SC.T, X, beta=0.9), reps)
     gflop = 2.0 * k * m * n / 1e9
-    gbyte = 4.0 * (m * n + 2 * k * n) / 1e9     # X read, B read and written
+    # X and SC read, B read and written
+    gbyte = 4.0 * (m * n + m * k + 2 * k * n) / 1e9
+    t_bytes, t_ops = gbyte / HBM_BPS * 1e12, gflop / TF32X3_FLOPS * 1e12
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = 'bytes' if t_bytes >= t_ops else 'operations'
     phase('ema_kernel', shape=f'k{k}xm{m}xn{n}', ms=f'{ms:.4f}',
-          plain_ms=f'{plain_ms:.4f}',
+          plain_ms=f'{plain_ms:.4f}', library_ms=f'{library_ms:.4f}',
+          bound_ms=f'{bound_ms:.4f}', bound_by=bound_by,
           kernel_tflops=f'{gflop / ms:.2f}',
           plain_tflops=f'{gflop / plain_ms:.2f}',
           kernel_GBps=f'{gbyte / ms * 1e3:.0f}',
           plain_GBps=f'{gbyte / plain_ms * 1e3:.0f}')
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_ms, bound_by, library_ms
 
 
 def launch_overhead_phase():
     """The launch-overhead probe against its plain version at four
     blocks, then its benchmark; returns (launches of the benchmark,
-    max abs error, kernel ms, plain ms) for one launch of four blocks."""
+    max abs error, kernel ms, plain ms, bound ms) for one launch of four
+    blocks."""
     import torch
     from modl_tpu_torch.benchmarks import launch_overhead as lo
     D, G = lo.operands(n_blocks=4)
@@ -283,9 +364,12 @@ def launch_overhead_phase():
     Dt = D.clone()
     ms = cuda_ms(lambda: call(Dt, G), 50)
     plain_ms = cuda_ms(lambda: lo.launch_overhead_reference(Dt, G), 50)
+    # D and G read, D written
+    bound_ms = 4 * (2 * D.numel() + G.numel()) / HBM_BPS * 1e3
     phase('launch_overhead', shape=f'{tuple(D.shape)}',
           max_abs_err=f'{err:.3e}', rel_err=f'{err / scale:.3e}',
-          ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}', ok=ok)
+          ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{bound_ms:.4f}', ok=ok)
     if not ok:
         raise RuntimeError('launch-overhead kernel disagrees with its plain '
                            'version')
@@ -298,7 +382,7 @@ def launch_overhead_phase():
               ms_per_step=f'{per_step:.4f}', ms_per_call=f'{per_call:.4f}')
     if launches == 0:
         raise RuntimeError('the launch-overhead benchmark launched nothing')
-    return launches, err, ms, plain_ms
+    return launches, err, ms, plain_ms, bound_ms
 
 
 def expected_launches(cfg, n_frames, batch, n_records, n_epochs, blocks):
@@ -560,8 +644,12 @@ def main():
     # 3. the kernel against its plain version
     results = [kernel_case(bcd, *case, seed=i)
                for i, case in enumerate(KERNEL_CASES)]
+    results += [kernel_case(bcd, *case, seed=len(results) + i, shrink=False)
+                for i, case in enumerate(NO_SHRINK_CASES)]
     max_err = max(r[0] for r in results)
-    adhd_ms, adhd_plain_ms = results[0][1], results[0][2]
+    adhd_ms, adhd_plain_ms, adhd_bound_ms, adhd_bound_by = results[0][1:]
+    hcp_ms, hcp_plain_ms, hcp_bound_ms, _ = results[1][1:]
+    barrier_phase(bcd._plan(*KERNEL_CASES[0][:2])[0])
 
     # 4. ADHD-70 through DictFact.fit
     X, X_test = adhd_data()
@@ -649,7 +737,8 @@ def main():
     ema_err = max(r[0] for r in ema)
 
     # 7. the launch-overhead probe and its benchmark
-    lo_launches, lo_err, lo_ms, lo_plain_ms = launch_overhead_phase()
+    lo_launches, lo_err, lo_ms, lo_plain_ms, lo_bound_ms = \
+        launch_overhead_phase()
 
     # 8-9. the streaming fMRI fits (records under build/, git ignores it)
     workdir = os.path.join(REPO, 'build', 'chip_smoke_fmri')
@@ -665,17 +754,22 @@ def main():
         'source': 'modl_tpu_torch/csrc/bcd_update.cu',
         'replaces': 'modl_tpu/ops/bcd_pallas.py:267',
         'launches': launches, 'max_abs_err': max_err,
-        'ms': adhd_ms, 'plain_ms': adhd_plain_ms}, {
+        'ms': adhd_ms, 'plain_ms': adhd_plain_ms,
+        'bound_ms': adhd_bound_ms, 'bound_by': adhd_bound_by,
+        'library_ms': None, 'ms_hcp': hcp_ms, 'plain_ms_hcp': hcp_plain_ms,
+        'bound_ms_hcp': hcp_bound_ms}, {
         'name': 'ema_accumulate', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/ema_gemm.cu',
         'replaces': 'modl_tpu/ops/ema_gemm.py:83',
         'launches': ema_launches, 'max_abs_err': ema_err,
-        'ms': ema[0][1], 'plain_ms': ema[0][2]}, {
+        'ms': ema[0][1], 'plain_ms': ema[0][2], 'bound_ms': ema[0][3],
+        'bound_by': ema[0][4], 'library_ms': ema[0][5]}, {
         'name': 'launch_overhead', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/launch_overhead.cu',
         'replaces': 'benchmarks/pallas_call_overhead.py:31',
         'launches': lo_launches, 'max_abs_err': lo_err,
-        'ms': lo_ms, 'plain_ms': lo_plain_ms}]}), flush=True)
+        'ms': lo_ms, 'plain_ms': lo_plain_ms, 'bound_ms': lo_bound_ms,
+        'bound_by': 'bytes', 'library_ms': None}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

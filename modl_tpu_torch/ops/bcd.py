@@ -27,6 +27,17 @@ than ~1e-2 off on deep-shrinkage rows.
 ``bcd_update`` runs the plain version for CPU tensors only; for CUDA
 tensors it launches ``csrc/bcd_update.cu`` or raises. ``LAUNCHES`` counts
 kernel launches.
+
+The kernel is a persistent cooperative grid of one block per SM, each
+owning a column slab of D and of the residual in shared memory. Per
+atom it makes one grid-wide exchange: each block publishes its slab of
+the candidate row to a row buffer in global memory, and after the
+barrier every block copies the whole row and runs the threshold search
+on it alone (the same sums in the same order in every block, so all
+hold the same threshold). ``_plan`` stages the row in shared memory
+beside the slabs where it fits, and otherwise has the search read it
+from L2 on every pass. ``last_exchanges`` reads the grid barriers of the
+last launch.
 """
 import ctypes
 import functools
@@ -37,10 +48,12 @@ from . import _build
 from .enet import enet_norm
 
 __all__ = ["bcd_update", "bcd_update_reference", "supported", "max_block",
-           "LAUNCHES"]
+           "last_exchanges", "LAUNCHES"]
 
 # kernel launches made by ``bcd_update`` (read by chip_smoke.py)
 LAUNCHES = 0
+# (scratch, grid) of the last launch: its barrier counter
+_last_launch = None
 
 NEWTON_ITERS = 6    # bracketed-Newton steps of the l1-ball threshold
 PROJ_ITERS = 30     # bisection steps of the elastic-net-ball threshold
@@ -50,7 +63,7 @@ MAX_ROWS = 256
 # dynamic shared memory one block may opt into on sm_90 (227 KB)
 SMEM_BYTES = 232448
 # the kernel's block size and warps (must match csrc/bcd_update.cu)
-THREADS = 256
+THREADS = 512
 _NWARPS = THREADS // 32
 # narrowest column slab worth a block of its own
 MIN_COLS = 32
@@ -66,17 +79,26 @@ def _sm_count():
     return H100_SMS
 
 
+def _row4(s):
+    """The row buffer's width: s rounded up to whole 16-byte chunks."""
+    return -(-s // 4) * 4
+
+
 def _plan(k, s):
-    """Column-slab plan: (blocks, slab width, dynamic smem bytes).
+    """Column-slab plan: (blocks, slab width, dynamic smem bytes, staged).
 
     One block per multiprocessor (fewer for narrow rows); each owns a
     contiguous slab of ``w`` columns and keeps its D and residual slabs,
-    one working row and the k budgets in shared memory."""
+    the atom's delta (which shares its room with the reductions'
+    buffers), the k budgets and the row's two first statistics in shared
+    memory, and, when ``staged``, a copy of the whole candidate row; a
+    row that does not fit beside the slabs is read from L2 instead."""
     grid = max(1, min(_sm_count(), -(-s // MIN_COLS)))
     w = -(-s // grid)
     grid = -(-s // w)
-    smem = 4 * (2 * k * w + w + k + 2 * _NWARPS + 2)
-    return grid, w, smem
+    smem = 4 * (2 * k * w + max(w, 4 * _NWARPS) + k + 2)
+    staged = smem + 4 * _row4(s) <= SMEM_BYTES
+    return grid, w, smem + (4 * _row4(s) if staged else 0), staged
 
 
 def supported(k, s, dtype):
@@ -196,9 +218,19 @@ def bcd_update_reference(D, grad, C, comp_norm, order=None, comp_pos=False,
 @functools.cache
 def _kernel():
     return _build.entry('modl_bcd_update_f32',
-                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                         + [ctypes.c_float] * 3
                         + [ctypes.c_int, ctypes.c_void_p])
+
+
+def last_exchanges():
+    """Grid-wide exchanges (barriers) the last kernel launch made, read
+    from its barrier counter once it has run (synchronises); None before
+    any launch."""
+    if _last_launch is None:
+        return None
+    scratch, grid = _last_launch
+    return int(scratch[-1:].view(torch.int32).item()) // grid
 
 
 def bcd_update(D, grad, C, comp_norm, order=None, comp_pos=False,
@@ -211,7 +243,7 @@ def bcd_update(D, grad, C, comp_norm, order=None, comp_pos=False,
     :func:`bcd_update_reference`; CUDA tensors launch the Hopper kernel
     on the current stream (no synchronisation) and raise on anything it
     does not take."""
-    global LAUNCHES
+    global LAUNCHES, _last_launch
     if D.device.type == 'cpu':
         return bcd_update_reference(D, grad, C, comp_norm, order=order,
                                     comp_pos=comp_pos, l1_ratio=l1_ratio)
@@ -237,23 +269,27 @@ def bcd_update(D, grad, C, comp_norm, order=None, comp_pos=False,
             raise ValueError('bcd_update: order must be a (k,) tensor on '
                              f'{D.device}')
         order = order.to(torch.int32).contiguous()
-    grid, w, _ = _plan(k, s)
+    grid, w, smem, staged = _plan(k, s)
     mode = 0 if l1_ratio == 0.0 else 1 if l1_ratio == 1.0 else 2
     gamma = 2.0 / l1_ratio - 2.0 if mode == 2 else 0.0
     D_out = torch.empty_like(D)
     cn_out = torch.empty_like(comp_norm)
-    scratch = torch.empty((4 + 2 * k) * grid, dtype=torch.float32,
-                          device=D.device)
+    # two candidate rows, the old-norm partials, two rows' statistics
+    # partials, the barrier counter
+    scratch = torch.empty(2 * _row4(s) + (k + 4) * grid + 1,
+                          dtype=torch.float32, device=D.device)
+    scratch[-1:].zero_()
     err = _kernel()(
         D.data_ptr(), D_out.data_ptr(), grad.data_ptr(), C.data_ptr(),
         comp_norm.data_ptr(), cn_out.data_ptr(),
         order.data_ptr() if order is not None else None,
         scratch.data_ptr(),
-        k, s, w, grid, _l1_count(s), mode,
+        k, s, w, grid, smem, int(staged), _l1_count(s), mode,
         float(l1_ratio), gamma, gamma / 2.0, int(bool(comp_pos)),
         torch.cuda.current_stream(D.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'bcd_update: kernel launch failed with '
                            f'cudaError {err} at (k={k}, s={s}, grid={grid})')
     LAUNCHES += 1
+    _last_launch = (scratch, grid)
     return D_out, cn_out
