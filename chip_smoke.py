@@ -41,7 +41,29 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    host-to-device rate;
 9. fmri_hcp1024: ``exps/hcp/decompose_hcp.py``'s configuration (k=1024,
    reduction 20, batch 200) on 2 Gaussian records of 1,200 x 200,000,
-   2 epochs: the same checks through the BCD block driver.
+   2 epochs: the same checks through the BCD block driver;
+10. recsys_ml10m: ``RecsysDictFact.fit`` on ``bench.py``'s MovieLens-10M
+   scale planted ratings (69,878 x 10,677, ~7.45M training entries, k=50,
+   batch ceil(1 / sparsity) = 101, 2 epochs): one BCD launch a batch on
+   the masked union-of-supports update, ``use_kernel_``, the resident
+   width, epoch ratings/s, test RMSE after each epoch below the bias-only
+   RMSE, and a one-epoch fit with the kernel forced off within 1e-2;
+11. image: ``ImageDictFact.fit`` at ``exps/exp_decompose_images.py``'s
+   configuration (k=128, 16 x 16 patches, reduction 8, batch 200) on a
+   768 x 1,024 grey synthetic image (the face's size; ~760k patches,
+   gathered buffer by buffer), one epoch: one BCD launch a step, held-out
+   score below the initial dictionary's, agreement with a plain-path refit
+   on a 20,000-patch subset, patches/s; then a short NMF fit (20,000
+   patches) with non-negative components and codes.
+
+Phase 3 also holds the kernel at the recsys shape (50 x 10,677, l2 ball,
+D and the gradient masked by a real batch's union of supports), at the
+image fit's shape (128 x 75, the subset's storage width, as the main image
+fit calls it) and at the image NMF shapes (128 x 32 and 128 x 75), and the
+recsys route at a width one kernel call does not take (256 x 17,770,
+Netflix's item count) through the block driver. The kernel-off refits of
+phases 10 and 11 run with the kernel's wrapper swapped for its plain
+version (``plain_bcd``).
 
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last, the
 device line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -82,6 +104,16 @@ KERNEL_CASES = [(70, 17655, 1.0, False), (256, 10780, 1.0, False),
 # the same with a zero gradient and a budget no row reaches: no row
 # shrinks, so one exchange an atom is the whole cost
 NO_SHRINK_CASES = [(70, 17655, 1.0, False)]
+# the image fits' calls, l2 ball: the main fit's ('dictionary
+# learning', no sign constraint) at the subset's storage width
+# (binomial_len_max(256, 32)), then the NMF fit's (comp_pos) at
+# len_subset (256 / 8) and at the storage width
+IMAGE_CASES = [(128, 75, 0.0, False), (128, 32, 0.0, True),
+               (128, 75, 0.0, True)]
+# the recsys route through the block driver: k=256 at Netflix's item
+# count (the plan takes at most ~14.9k columns at k=256), a random union
+# of 63% of the columns, as at MovieLens-10M
+BLOCKED_RECSYS = (256, 17_770, 0.63)
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, f32
 # flop/s outside the tensor cores, 3xTF32 flop/s (495 / 3)
 HBM_BPS, F32_FLOPS, TF32X3_FLOPS = 3.35e12, 67e12, 495e12 / 3
@@ -145,12 +177,12 @@ def bcd_bound(k, s):
                                        else 'operations')
 
 
-def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed, shrink=True):
+def bcd_inputs(k, s, l1_ratio, g, shrink=True, mask=None):
+    """(D, grad, C, comp_norm, order) of one BCD call on the card, drawn
+    from the generator ``g``; ``mask`` (s,) zeroes the columns of D and
+    the gradient outside a union of supports, as the recsys step does."""
     import torch
     from modl_tpu_torch.ops.enet import enet_scale
-    if k is None:
-        k = bcd.max_block(s, torch.float32)
-    g = torch.Generator(device='cuda').manual_seed(seed)
     dev = dict(device='cuda', dtype=torch.float32, generator=g)
     D = enet_scale(torch.randn(k, s, **dev), l1_ratio, radius=1.0)
     A = torch.randn(k, k, **dev)
@@ -161,8 +193,22 @@ def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed, shrink=True):
     else:
         grad = torch.zeros(k, s, device='cuda')
         cn = torch.full((k,), 1e4, device='cuda')
+    if mask is not None:
+        D, grad = D * mask, grad * mask
     order = torch.randperm(k, device='cuda', generator=g)
-    args = (D, grad, C, cn, order)
+    return D, grad, C, cn, order
+
+
+def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed, shrink=True,
+                mask=None):
+    """The kernel against its plain version at one shape (``mask`` as in
+    :func:`bcd_inputs`)."""
+    import torch
+    if k is None:
+        k = bcd.max_block(s, torch.float32)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    args = bcd_inputs(k, s, l1_ratio, g, shrink=shrink, mask=mask)
+    D, cn = args[0], args[3]
     kw = dict(comp_pos=comp_pos, l1_ratio=l1_ratio)
     Dk, cnk = bcd.bcd_update(*args, **kw)
     exchanges = bcd.last_exchanges()
@@ -183,8 +229,10 @@ def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed, shrink=True):
     ms = cuda_ms(lambda: bcd.bcd_update(*args, **kw), 10)
     plain_ms = cuda_ms(lambda: bcd.bcd_update_reference(*args, **kw), 2)
     bound_ms, bound_by = bcd_bound(k, s)
+    extra = {} if mask is None else dict(
+        union_share=f'{float(mask.mean()):.4f}')
     phase('kernel', shape=f'{k}x{s}', l1_ratio=l1_ratio, comp_pos=comp_pos,
-          shrink=shrink, staged=bcd._plan(k, s)[3],
+          shrink=shrink, **extra, staged=bcd._plan(k, s)[3],
           max_abs_err=f'{err:.3e}', rel_err=f'{err / scale:.3e}',
           cn_abs_err=f'{err_cn:.3e}', exchanges=exchanges,
           bitwise_repeat=bitwise, ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
@@ -195,6 +243,54 @@ def kernel_case(bcd, k, s, l1_ratio, comp_pos, seed, shrink=True):
                            f'itself or with one exchange an atom at '
                            f'({k}, {s}, l1={l1_ratio}, pos={comp_pos})')
     return err, ms, plain_ms, bound_ms, bound_by
+
+
+def blocked_recsys_case(bcd, seed):
+    """The recsys step's BCD route (``_step.bcd_kernel``, l2 ball, masked
+    D and gradient) at a width one kernel call does not take: the block
+    driver, one launch a block, against the plain version."""
+    import torch
+    from modl_tpu_torch.decomposition._step import bcd_kernel
+    k, s, share = BLOCKED_RECSYS
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    mask = (torch.rand(s, device='cuda', generator=g) < share).float()
+    D, grad, C, cn, order = bcd_inputs(k, s, 0.0, g, mask=mask)
+    block = bcd.max_block(s, torch.float32)
+    blocks = -(-k // block)
+    bcd.LAUNCHES = 0
+    Dk, cnk = bcd_kernel(D.clone(), grad, C, cn, order, False, 0.0)
+    launches = bcd.LAUNCHES
+    Dr, cnr = bcd.bcd_update_reference(D, grad, C, cn, order)
+    torch.cuda.synchronize()
+    err = float((Dk - Dr).abs().max())
+    scale = float(Dr.abs().max())
+    err_cn = float((cnk - cnr).abs().max())
+    budget = float((cn + (D * D).sum(1)).abs().max())
+    ok = (bool(torch.isfinite(Dk).all()) and not bcd.supported(
+        k, s, torch.float32) and launches == blocks >= 2
+        and err <= KERNEL_RTOL * scale and err_cn <= KERNEL_RTOL * budget)
+    phase('kernel_blocked', shape=f'{k}x{s}', l1_ratio=0.0,
+          union_share=f'{float(mask.mean()):.4f}', block=block,
+          launches=launches, max_abs_err=f'{err:.3e}',
+          rel_err=f'{err / scale:.3e}', cn_abs_err=f'{err_cn:.3e}', ok=ok)
+    if not ok:
+        raise RuntimeError(f'the recsys route at ({k}, {s}) did not go '
+                           f'through {blocks} kernel blocks or disagrees '
+                           'with the plain version')
+    return err
+
+
+@contextlib.contextmanager
+def plain_bcd():
+    """The BCD kernel's wrapper swapped for its plain version, which then
+    runs on the card, for a kernel-off refit; restored after."""
+    from modl_tpu_torch.ops import bcd
+    saved = bcd.bcd_update
+    bcd.bcd_update = bcd.bcd_update_reference
+    try:
+        yield
+    finally:
+        bcd.bcd_update = saved
 
 
 def barrier_phase(grid):
@@ -608,6 +704,177 @@ def fmri_hcp1024(workdir, X0):
     shutil.rmtree(d, ignore_errors=True)
 
 
+def recsys_union(X):
+    """(n,) float mask on the card: the union of the supports of the
+    first batch of the fit's first epoch (its seed's draws: the initial
+    dictionary, then the epoch's permutation)."""
+    import torch
+    from modl_tpu_torch.benchmarks.workloads import RECSYS, recsys_batch
+    n_samples, n_features = X.shape
+    rng = np.random.RandomState(RECSYS['random_state'])
+    rng.randn(RECSYS['n_components'], n_features)
+    rows = rng.permutation(n_samples)[:recsys_batch(X)]
+    union = np.zeros(n_features, np.float32)
+    union[np.concatenate([X.indices[X.indptr[r]:X.indptr[r + 1]]
+                          for r in rows])] = 1.0
+    return torch.as_tensor(union, device='cuda')
+
+
+def bias_only_rmse(est, X):
+    """Test RMSE of the fit's own row and column biases (cropped)."""
+    import scipy.sparse as sp
+    from modl_tpu_torch.benchmarks.workloads import RECSYS
+    from modl_tpu_torch.decomposition.recsys import rmse
+    rows = np.repeat(np.arange(X.shape[0]), np.diff(X.indptr))
+    pred = np.clip(est.row_mean_[rows] + est.col_mean_[X.indices],
+                   *RECSYS['crop'])
+    return rmse(X, sp.csr_matrix((pred, X.indices, X.indptr),
+                                 shape=X.shape))
+
+
+def recsys_ml10m(X_tr, X_te):
+    """bench.py's recsys configuration through RecsysDictFact.fit; returns
+    the BCD launches of the two-epoch fit."""
+    from modl_tpu_torch import RecsysDictFact
+    from modl_tpu_torch.benchmarks.workloads import (RECSYS, RECSYS_EPOCHS,
+                                                     recsys_batch)
+    from modl_tpu_torch.decomposition.recsys import compute_biases
+    from modl_tpu_torch.ops import bcd
+
+    # bench.py's bias-only RMSE: the test entries less their own biases
+    Xc = X_te.copy()
+    compute_biases(Xc, beta=RECSYS['beta'], inplace=True)
+    bench_bias_rmse = float(np.sqrt(np.mean(Xc.data ** 2)))
+    del Xc
+    one = RecsysDictFact(**RECSYS, n_epochs=1, device='cuda')
+    one_seconds = timed_fit(one, X_tr)       # also the warm-up
+    rmse_1 = one.score(X_te)
+    bcd.LAUNCHES = 0
+    est = RecsysDictFact(**RECSYS, n_epochs=RECSYS_EPOCHS, device='cuda')
+    seconds = timed_fit(est, X_tr)
+    launches = bcd.LAUNCHES
+    rmse_2 = est.score(X_te)
+    bcd.LAUNCHES = 0
+    plain = RecsysDictFact(**RECSYS, n_epochs=1, device='cuda')
+    with plain_bcd():
+        plain_seconds = timed_fit(plain, X_tr)
+    plain_launches = bcd.LAUNCHES
+    rmse_plain = plain.score(X_te)
+    bias_rmse = bias_only_rmse(est, X_te)
+    n_samples, n_features = X_tr.shape
+    batch = recsys_batch(X_tr)
+    n_batches = -(-n_samples // batch)
+    rel = abs(rmse_1 - rmse_plain) / rmse_plain
+    phase('recsys_ml10m', rows=n_samples, items=n_features,
+          train_ratings=X_tr.nnz, test_ratings=X_te.nnz, batch=batch,
+          batches_per_epoch=n_batches, bcd_launches=launches,
+          bcd_launches_kernel_off=plain_launches,
+          use_kernel=est.use_kernel_,
+          resident=est.resident_width_ is not None,
+          width=est.resident_width_,
+          test_rmse_epoch1=f'{rmse_1:.6f}', test_rmse_epoch2=f'{rmse_2:.6f}',
+          test_rmse_kernel_off_epoch1=f'{rmse_plain:.6f}',
+          rel_diff=f'{rel:.3e}', bias_only_rmse=f'{bias_rmse:.6f}',
+          bench_bias_only_rmse=f'{bench_bias_rmse:.6f}',
+          epoch_ratings_per_s=f'{RECSYS_EPOCHS * X_tr.nnz / est.time_:.1f}',
+          epoch_rows_per_s=f'{RECSYS_EPOCHS * n_samples / est.time_:.1f}',
+          epoch_s=f'{est.time_ / RECSYS_EPOCHS:.4f}',
+          epoch_s_kernel_off=f'{plain.time_:.4f}',
+          fit_s=f'{seconds:.4f}', fit_s_one_epoch=f'{one_seconds:.4f}',
+          fit_s_kernel_off=f'{plain_seconds:.4f}')
+    if not (est.use_kernel_ and one.use_kernel_ and plain.use_kernel_):
+        raise RuntimeError('recsys_ml10m: a fit on the card did not take '
+                           'the kernel route')
+    if launches != RECSYS_EPOCHS * n_batches or plain_launches != 0:
+        raise RuntimeError(f'recsys_ml10m: {launches} BCD launches '
+                           f'({plain_launches} with the kernel off), '
+                           f'expected {RECSYS_EPOCHS * n_batches} and 0')
+    if not (math.isfinite(rmse_2) and rmse_2 < min(bias_rmse,
+                                                   bench_bias_rmse)):
+        raise RuntimeError(f'recsys_ml10m: test RMSE {rmse_2} not below '
+                           f'the bias-only {bias_rmse} and '
+                           f'{bench_bias_rmse}')
+    if not rel < FIT_RTOL:
+        raise RuntimeError(f'recsys_ml10m: kernel and plain fits differ: '
+                           f'RMSE {rmse_1} vs {rmse_plain} (rel {rel})')
+    return launches
+
+
+def image_phase():
+    """exps/exp_decompose_images.py's configuration through
+    ImageDictFact.fit; returns the BCD launches of the main fit."""
+    import torch
+    from modl_tpu_torch import ImageDictFact
+    from modl_tpu_torch.benchmarks.workloads import (IMAGE, IMAGE_SHAPE,
+                                                     IMAGE_SUBSET,
+                                                     IMAGE_TEST, image_steps)
+    from modl_tpu_torch.datasets.image import make_synthetic_image
+    from modl_tpu_torch.feature_extraction.image import \
+        LazyCleanPatchExtractor
+    from modl_tpu_torch.ops import bcd
+
+    image = make_synthetic_image(*IMAGE_SHAPE)
+    test = LazyCleanPatchExtractor(
+        patch_size=IMAGE['patch_size'], max_patches=IMAGE_TEST,
+        random_state=IMAGE['random_state'] + 1).fit(image).transform()
+    init = ImageDictFact(**IMAGE, n_epochs=0, device='cuda').fit(image)
+    score0 = init.score(test)
+    bcd.LAUNCHES = 0
+    est = ImageDictFact(**IMAGE, n_epochs=1, device='cuda')
+    seconds = timed_fit(est, image)
+    launches = bcd.LAUNCHES
+    score = est.score(test)
+    n_rows = est.n_iter_
+    steps = image_steps(n_rows, est)
+    cfg = est.dict_fact_._cfg
+    sub = dict(IMAGE, n_epochs=1, max_patches=IMAGE_SUBSET, device='cuda')
+    kernel_sub = ImageDictFact(**sub).fit(image)
+    bcd.LAUNCHES = 0
+    plain_sub = ImageDictFact(**sub)
+    with plain_bcd():
+        plain_seconds = timed_fit(plain_sub, image)
+    plain_launches = bcd.LAUNCHES
+    score_k, score_p = kernel_sub.score(test), plain_sub.score(test)
+    rel = abs(score_k - score_p) / abs(score_p)
+    bcd.LAUNCHES = 0
+    nmf = ImageDictFact(**dict(sub, setting='NMF'))
+    nmf_seconds = timed_fit(nmf, image)
+    nmf_launches = bcd.LAUNCHES
+    nmf_codes = nmf.transform(test)
+    nmf_ok = bool((nmf.components_ >= 0).all() and (nmf_codes >= 0).all()
+                  and nmf_codes.any() and np.isfinite(nmf.score(test)))
+    phase('image', image=f'{IMAGE_SHAPE[0]}x{IMAGE_SHAPE[1]}',
+          patches=n_rows, features=est.dict_fact_._n_features,
+          len_subset=cfg.len_subset, len_max=cfg.len_max,
+          steps=steps, bcd_launches=launches,
+          bcd_launches_plain=plain_launches, score=f'{score:.6g}',
+          score_init=f'{score0:.6g}', subset=IMAGE_SUBSET,
+          subset_score=f'{score_k:.6g}', subset_score_plain=f'{score_p:.6g}',
+          rel_diff=f'{rel:.3e}', nmf_launches=nmf_launches,
+          nmf_nonnegative=nmf_ok,
+          fit_patches_per_s=f'{n_rows / seconds:.1f}',
+          compute_patches_per_s=f'{n_rows / est.time_:.1f}',
+          subset_fit_s=f'{plain_seconds:.4f}',
+          nmf_fit_s=f'{nmf_seconds:.4f}', fit_s=f'{seconds:.4f}')
+    nmf_steps = image_steps(IMAGE_SUBSET, nmf)
+    if (launches, nmf_launches, plain_launches) != (steps, nmf_steps, 0):
+        raise RuntimeError(f'image: {launches} and {nmf_launches} BCD '
+                           f'launches ({plain_launches} plain), expected '
+                           f'{steps} and {nmf_steps} (0)')
+    if not (math.isfinite(score) and score < score0):
+        raise RuntimeError(f'image: held-out score {score} not below the '
+                           f'initial {score0}')
+    if not rel < FIT_RTOL:
+        raise RuntimeError(f'image: kernel and plain fits differ: '
+                           f'{score_k} vs {score_p} (rel {rel})')
+    if not nmf_ok:
+        raise RuntimeError('image: NMF components or codes not '
+                           'non-negative and finite')
+    if not bool(torch.isfinite(est.dict_fact_._state.D).all()):
+        raise RuntimeError('image: dictionary not finite')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -646,7 +913,17 @@ def main():
                for i, case in enumerate(KERNEL_CASES)]
     results += [kernel_case(bcd, *case, seed=len(results) + i, shrink=False)
                 for i, case in enumerate(NO_SHRINK_CASES)]
-    max_err = max(r[0] for r in results)
+    from modl_tpu_torch.benchmarks.workloads import RECSYS, recsys_data
+    X_tr, X_te = recsys_data()
+    union = recsys_union(X_tr)
+    recsys_case = kernel_case(bcd, RECSYS['n_components'], X_tr.shape[1],
+                              0.0, False, seed=len(results), mask=union)
+    image_cases = [kernel_case(bcd, *case, seed=len(results) + 1 + i)
+                   for i, case in enumerate(IMAGE_CASES)]
+    results += [recsys_case] + image_cases
+    del union
+    max_err = max([r[0] for r in results]
+                  + [blocked_recsys_case(bcd, seed=len(results))])
     adhd_ms, adhd_plain_ms, adhd_bound_ms, adhd_bound_by = results[0][1:]
     hcp_ms, hcp_plain_ms, hcp_bound_ms, _ = results[1][1:]
     barrier_phase(bcd._plan(*KERNEL_CASES[0][:2])[0])
@@ -748,6 +1025,12 @@ def main():
         fmri_hcp1024(workdir, X)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    del X
+
+    # 10-11. the recsys and image fits
+    recsys_launches = recsys_ml10m(X_tr, X_te)
+    del X_tr, X_te
+    image_launches = image_phase()
 
     print(json.dumps({'kernels': [{
         'name': 'bcd_update', 'route': 'cuda',
@@ -757,7 +1040,11 @@ def main():
         'ms': adhd_ms, 'plain_ms': adhd_plain_ms,
         'bound_ms': adhd_bound_ms, 'bound_by': adhd_bound_by,
         'library_ms': None, 'ms_hcp': hcp_ms, 'plain_ms_hcp': hcp_plain_ms,
-        'bound_ms_hcp': hcp_bound_ms}, {
+        'bound_ms_hcp': hcp_bound_ms, 'launches_recsys': recsys_launches,
+        'ms_recsys': recsys_case[1], 'plain_ms_recsys': recsys_case[2],
+        'bound_ms_recsys': recsys_case[3], 'launches_image': image_launches,
+        'ms_image': image_cases[0][1], 'plain_ms_image': image_cases[0][2],
+        'bound_ms_image': image_cases[0][3]}, {
         'name': 'ema_accumulate', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/ema_gemm.cu',
         'replaces': 'modl_tpu/ops/ema_gemm.py:83',

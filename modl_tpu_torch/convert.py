@@ -4,7 +4,8 @@ Takes host values only (numpy arrays, a frozen dataclass), so nothing
 here imports JAX: ``state_from_jax`` reads the dictionary that
 ``modl_tpu.decomposition.dict_fact._state_to_host`` returns, and
 ``config_from_jax`` reads the attributes of a ``modl_tpu`` SomfConfig
-and ``masker_from_jax`` those of a fitted ``modl_tpu`` ``NumpyMasker``.
+and ``masker_from_jax`` those of a fitted ``modl_tpu`` ``NumpyMasker``;
+``recsys_state_from_jax`` takes the host values of a recsys fit's state.
 Together they let a test start both packages from the same state.
 """
 import dataclasses
@@ -15,7 +16,8 @@ import torch
 from .decomposition._step import SomfConfig, SomfState
 from .input_data.fmri.base import NumpyMasker
 
-__all__ = ["state_from_jax", "config_from_jax", "masker_from_jax"]
+__all__ = ["state_from_jax", "config_from_jax", "masker_from_jax",
+           "recsys_state_from_jax"]
 
 
 def state_from_jax(state_np, device='cpu', dtype=None, seed=0):
@@ -74,3 +76,23 @@ def masker_from_jax(masker):
     order = masker.feature_order_
     params['feature_order'] = None if order is None else np.array(order)
     return NumpyMasker(**params).fit()
+
+
+def recsys_state_from_jax(state_np, device='cpu', dtype=None):
+    """The port's recsys state from the JAX one on the host.
+
+    ``state_np`` maps ``D``, ``C``, ``B`` and ``code`` (the JAX
+    estimator's ``_D``, ``_C``, ``_B``, ``_code``) and the step's
+    ``comp_norm``, ``feature_n_iter`` and ``n_iter`` to numpy values.
+    Returns a dict of the same keys: float tensors on ``device`` in
+    ``dtype`` (default: the dictionary's), ``feature_n_iter`` as int32
+    and ``n_iter`` as a host int, the arguments of
+    ``decomposition.recsys._recsys_batch_step``."""
+    if dtype is None:
+        dtype = getattr(torch, np.asarray(state_np['D']).dtype.name)
+    out = {name: torch.as_tensor(np.array(state_np[name])).to(device, dtype)
+           for name in ('D', 'C', 'B', 'code', 'comp_norm')}
+    out['feature_n_iter'] = torch.as_tensor(
+        np.array(state_np['feature_n_iter'], dtype=np.int32)).to(device)
+    out['n_iter'] = int(state_np['n_iter'])
+    return out

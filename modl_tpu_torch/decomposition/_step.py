@@ -207,16 +207,19 @@ def _bcd_plain(D_subset, grad_subset, C, comp_norm, order, cfg):
     return D_subset, comp_norm
 
 
-def _bcd_blocks(D_subset, grad_subset, C, comp_norm, order, cfg):
+def _bcd_blocks(D_subset, grad_subset, C, comp_norm, order, comp_pos,
+                l1_ratio):
     """Kernel block driver for dictionaries wider than one kernel call:
     per block of the visit order the out-of-block residual contributions
     are subtracted from the gradient with one product, and the kernel
-    updates the block's rows (already in visit order)."""
+    updates the block's rows (already in visit order). Overwrites the
+    rows of ``D_subset``; returns ``(D_subset, comp_norm')``."""
     k, s = D_subset.shape
     block = bcd.max_block(s, D_subset.dtype)
     if block == 0:
         raise ValueError(f'no BCD kernel block fits a subset of width {s}')
-    kw = dict(comp_pos=cfg.comp_pos, l1_ratio=cfg.comp_l1_ratio)
+    kw = dict(comp_pos=comp_pos, l1_ratio=l1_ratio)
+    comp_norm = comp_norm.clone()
     for start in range(0, k, block):
         ob = order[start:start + block]
         C_rows = C[ob]
@@ -229,6 +232,20 @@ def _bcd_blocks(D_subset, grad_subset, C, comp_norm, order, cfg):
         comp_norm[ob] = cn_blk
         D_subset[ob] = D_blk
     return D_subset, comp_norm
+
+
+def bcd_kernel(D_subset, grad_subset, C, comp_norm, order, comp_pos,
+               l1_ratio):
+    """The BCD kernel on a (k, s) dictionary: one call where its plan
+    takes the shape, else the block driver (which raises where no block
+    fits). Returns ``(D', comp_norm')``; may overwrite ``D_subset``."""
+    k, s = D_subset.shape
+    if bcd.supported(k, s, D_subset.dtype):
+        return bcd.bcd_update(D_subset, grad_subset.contiguous(), C,
+                              comp_norm, order=order, comp_pos=comp_pos,
+                              l1_ratio=l1_ratio)
+    return _bcd_blocks(D_subset, grad_subset, C, comp_norm, order,
+                       comp_pos, l1_ratio)
 
 
 def _writeback_window(D, D_subset, start, n_log):
@@ -269,15 +286,9 @@ def _update_dict(D, G, comp_norm, C, grad_subset, subset, w, order, cfg,
     comp_norm = comp_norm.clone()
 
     if cfg.optimizer == 'variational' and cfg.use_kernel:
-        k = cfg.n_components
-        if bcd.supported(k, s, dtype):
-            D_subset, comp_norm = bcd.bcd_update(
-                D_subset, grad_subset.contiguous(), C, comp_norm,
-                order=order, comp_pos=cfg.comp_pos,
-                l1_ratio=cfg.comp_l1_ratio)
-        else:
-            D_subset, comp_norm = _bcd_blocks(
-                D_subset, grad_subset, C, comp_norm, order, cfg)
+        D_subset, comp_norm = bcd_kernel(D_subset, grad_subset, C,
+                                         comp_norm, order, cfg.comp_pos,
+                                         cfg.comp_l1_ratio)
     elif cfg.optimizer == 'variational':
         D_subset, comp_norm = _bcd_plain(D_subset, grad_subset, C,
                                          comp_norm, order, cfg)

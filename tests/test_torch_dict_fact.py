@@ -6,7 +6,7 @@
 - ``fit`` on planted data reconstructs it;
 - ``transform``/``score`` against JAX ``compute_code``/``objective_value``;
 - the package imports neither JAX nor modl_tpu, and ``device='cuda'``
-  raises where there is no card.
+  (the default of every estimator) raises where there is no card.
 """
 import os
 import re
@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import jax
@@ -24,7 +25,7 @@ import jax.numpy as jnp
 from modl_tpu import Coder as JaxCoder
 from modl_tpu import DictFact as JaxDictFact
 from modl_tpu.decomposition import _step as jstep
-from modl_tpu_torch import Coder, DictFact
+from modl_tpu_torch import Coder, DictFact, ImageDictFact, RecsysDictFact
 from modl_tpu_torch.decomposition import _step
 from torch_parity import (assert_states_close, planted, port_config,
                           port_state, to_np)
@@ -133,7 +134,9 @@ def test_transform_and_score_match_jax(code_l1, with_gram):
 
 
 def test_import_does_not_pull_jax():
-    code = ("import sys, modl_tpu_torch, modl_tpu_torch.decomposition.fmri; "
+    code = ("import sys, modl_tpu_torch, modl_tpu_torch.decomposition.fmri, "
+            "modl_tpu_torch.decomposition.recsys, "
+            "modl_tpu_torch.decomposition.image; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'modl_tpu', 'sklearn', 'joblib')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -158,6 +161,12 @@ def test_cuda_device_raises_without_a_card():
         DictFact(n_components=3).fit(X)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Coder(X[:3]).transform(X)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        RecsysDictFact(n_components=3).fit(sp.random(20, 10, density=0.3,
+                                                     random_state=0))
+    image = np.random.RandomState(0).rand(12, 12, 1)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ImageDictFact(n_components=3, patch_size=(4, 4)).fit(image)
 
 
 def test_unfitted_estimator_raises():
