@@ -21,9 +21,32 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    (none), a held-out objective below the initial dictionary's, agreement
    with the gate-off fit and with a refit through the plain BCD path, and
    samples/s;
+   then dtype_policy: the same fit on the data cast to float64 with
+   ``dtype=None`` runs float32 state, one BCD launch a step and the
+   EMA-GEMM launches of phase 4; ``dtype=np.float64`` raises; a ``Coder``
+   of a float64 dictionary runs float32; ``fMRIDictFact`` on two
+   in-memory float64 records of 200 frames runs float32 state through
+   the kernel; and the fit under the former policy (float64 state, plain
+   BCD) for comparison;
+   then checkpoint: a fitted estimator pickled and reloaded on the card
+   (float32, equal components), one more ``partial_fit`` of it and of the
+   original (kernel launched, bitwise equal), and ``save_state`` /
+   ``load_state`` in the middle of a fit with the 'average' aggregators
+   (``G_avg`` loaded into pinned host RAM, moved to the card by the next
+   ``partial_fit``), resumed bitwise equal to the uninterrupted fit;
 5. hcp1024: one epoch (6 steps) of the HCP-1024 configuration through
    the kernel block driver, with the same launch counts, gate on and off,
    and samples/s;
+   then offload: the HCP-1024 configuration with ``Dx_agg=G_agg=
+   'average'``, one epoch with ``average_offload=True`` (G_avg, 5.03 GB,
+   in pinned host RAM; 6 segments of one batch; BCD launches as
+   counted, no EMA-GEMM launch) against the resident fit stepped batch
+   by batch, as the segments step (components within 1e-5 of their
+   scale, and whether they are bitwise equal), and the resident fused
+   epoch, which defers B's EMA (its difference printed); a held-out
+   objective below the initial dictionary's, the fits' times
+   (``StepTimer``), the host-device copy rates of a segment and the
+   device's idle share of one more offloaded epoch (``torch.profiler``);
 6. ema_kernel: the EMA-GEMM kernel (3xTF32 on the tensor cores) against
    its plain version at the segment-end shapes of the fMRI legs and of the
    resident ADHD-70 fit and at two ragged ones (one of odd width), for pi
@@ -126,6 +149,14 @@ KERNEL_RTOL = 1e-4
 # held-out objective of the kernel fit vs the plain-path refit
 # (tests/test_tpu_quality.py pins the Pallas path at the same 1e-2)
 FIT_RTOL = 1e-2
+# offloaded vs resident HCP-1024 components stepped batch by batch (the
+# same math: bitwise expected), relative to max |ref|
+OFFLOAD_RTOL = 1e-5
+# offloaded vs the resident fused epoch (deferred B: B's EMA summed over
+# a segment in another order), relative to max |ref|; the sound readings
+# were 3.6e-5 (H100 80GB HBM3, 700 W), so a drift of the deferred-B path
+# beyond its rounding shows
+OFFLOAD_DEFERRED_RTOL = 1e-4
 # EMA-GEMM kernel vs plain version, relative to max |ref|: the kernel's
 # 3xTF32 split (~1e-6 a product, tests/test_torch_ema_gemm.py) and f32
 # sums of m <= 1,200 products taken in another order
@@ -875,6 +906,284 @@ def image_phase():
     return launches
 
 
+@contextlib.contextmanager
+def float64_state_policy():
+    """The former dtype policy, for one fit: float64 data keeps float64
+    state on the card, which takes the plain BCD (the kernel runs float32
+    only) and the plain segment end."""
+    from modl_tpu_torch.decomposition import dict_fact
+    saved = dict_fact._default_dtype
+
+    def keep(dtype, device, explicit=False):
+        dtype = np.dtype(dtype)
+        return dtype if dtype in (np.float32, np.float64) \
+            else np.dtype(np.float32)
+
+    dict_fact._default_dtype = keep
+    try:
+        yield
+    finally:
+        dict_fact._default_dtype = saved
+
+
+def dtype_policy_phase(X, X_test, obj0):
+    """ADHD-70 on float64 data through DictFact(dtype=None) and through
+    fMRIDictFact on in-memory float64 records: float32 state, one BCD
+    launch a step and the EMA-GEMM launches of a float32 fit; an explicit
+    float64 raises; the former policy (float64 state, plain BCD) timed on
+    the same data."""
+    import torch
+    from modl_tpu_torch import Coder, DictFact, fMRIDictFact
+    from modl_tpu_torch.ops import bcd, ema_gemm
+    X64 = X.astype(np.float64)
+    kw = dict(ADHD, dtype=None)
+    bcd.LAUNCHES = ema_gemm.LAUNCHES = 0
+    df = DictFact(**kw, device='cuda')
+    seconds = timed_fit(df, X64)
+    launches, ema_launches = bcd.LAUNCHES, ema_gemm.LAUNCHES
+    obj = df.score(X_test)
+    steps = ADHD_SAMPLES // ADHD['batch_size']
+    want_ema = expected_launches(df._cfg, ADHD_SAMPLES, ADHD['batch_size'],
+                                 1, 1, 1)[1]
+    try:
+        DictFact(**dict(kw, dtype=np.float64), device='cuda').fit(X64[:200])
+        refused = False
+    except ValueError:
+        refused = True
+    coder_dtype = Coder(df.components_.astype(np.float64),
+                        device='cuda')._components_device().dtype
+    # the same fit under the former policy
+    bcd.LAUNCHES = 0
+    with float64_state_policy():
+        before = DictFact(**kw, device='cuda')
+        before_seconds = timed_fit(before, X64)
+    before_launches = bcd.LAUNCHES
+    obj_before = before.score(X_test)
+    rel = abs(obj - obj_before) / abs(obj_before)
+    # fMRIDictFact on two in-memory float64 records of 200 frames
+    records = [X64[:FMRI_ADHD_FRAMES], X64[FMRI_ADHD_FRAMES:
+                                           2 * FMRI_ADHD_FRAMES]]
+    fd = fMRIDictFact(mask=np.ones((N_FEATURES, 1, 1), bool), n_epochs=1,
+                      device='cuda', **FMRI_ADHD)
+    bcd.LAUNCHES = ema_gemm.LAUNCHES = 0
+    fd.fit(records)
+    torch.cuda.synchronize()
+    fmri_launches = (bcd.LAUNCHES, ema_gemm.LAUNCHES)
+    fcfg = fd.dict_fact_._cfg
+    want_fmri = expected_launches(fcfg, FMRI_ADHD_FRAMES,
+                                  FMRI_ADHD['batch_size'], FMRI_RECORDS, 1,
+                                  bcd_blocks(fcfg))
+    phase('dtype_policy', data='float64', state=str(df._state.D.dtype),
+          bcd_launches=launches, steps=steps, ema_launches=ema_launches,
+          segment_ends=want_ema, explicit_float64_refused=refused,
+          coder_dtype=str(coder_dtype), objective=f'{obj:.6g}',
+          objective_init=f'{obj0:.6g}',
+          objective_float64_state=f'{obj_before:.6g}', rel_diff=f'{rel:.3e}',
+          epoch_s=f'{df.time_:.4f}', fit_s=f'{seconds:.4f}',
+          float64_state=str(before._state.D.dtype),
+          float64_state_bcd_launches=before_launches,
+          float64_state_epoch_s=f'{before.time_:.4f}',
+          float64_state_fit_s=f'{before_seconds:.4f}',
+          fmri_state=str(fd.dict_fact_._state.D.dtype),
+          fmri_bcd_launches=fmri_launches[0],
+          fmri_ema_launches=fmri_launches[1], fmri_steps=want_fmri[0])
+    if not (df._state.D.dtype == torch.float32 and launches == steps
+            and ema_launches == want_ema > 0):
+        raise RuntimeError(f'dtype_policy: float64 data ran '
+                           f'{df._state.D.dtype} state with {launches} BCD '
+                           f'and {ema_launches} EMA-GEMM launches, expected '
+                           f'float32, {steps} and {want_ema}')
+    if not refused:
+        raise RuntimeError('dtype_policy: dtype=np.float64 on CUDA did not '
+                           'raise')
+    if coder_dtype != torch.float32:
+        raise RuntimeError(f'dtype_policy: Coder ran {coder_dtype} on CUDA')
+    if not (fd.dict_fact_._state.D.dtype == torch.float32
+            and fmri_launches == want_fmri):
+        raise RuntimeError(f'dtype_policy: fMRIDictFact ran '
+                           f'{fd.dict_fact_._state.D.dtype} state with '
+                           f'{fmri_launches} launches, expected float32 and '
+                           f'{want_fmri}')
+    if not (math.isfinite(obj) and obj < obj0 and rel < FIT_RTOL):
+        raise RuntimeError(f'dtype_policy: objective {obj} (initial {obj0}, '
+                           f'float64 state {obj_before})')
+    return launches
+
+
+def checkpoint_phase(X, workdir):
+    """A fitted ADHD-70 DictFact pickled and reloaded on the card, one
+    more partial_fit of both; then save_state/load_state mid-fit (with
+    the 'average' aggregators, so G_avg goes through host RAM) and a
+    resumed run against the uninterrupted one."""
+    import pickle
+
+    import torch
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.ops import bcd
+    from modl_tpu_torch.utils.checkpoint import load_state, save_state
+    df = DictFact(**ADHD, device='cuda').fit(X)
+    t0 = time.perf_counter()
+    blob = pickle.dumps(df)
+    twin = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    D = twin._state.D
+    loaded = (D.device.type == 'cuda' and D.dtype == torch.float32
+              and np.array_equal(twin.components_, df.components_))
+    rows = 5 * ADHD['batch_size']
+    bcd.LAUNCHES = 0
+    twin.partial_fit(X[:rows])
+    launches = bcd.LAUNCHES
+    df.partial_fit(X[:rows])
+    resumed = np.array_equal(twin.components_, df.components_)
+
+    # the mid-fit checkpoint carries G_avg: load_state leaves it in
+    # pinned host RAM and the next partial_fit moves it to the card
+    half = ADHD_SAMPLES // 2
+    path = os.path.join(workdir, 'mid.npz')
+    kw = dict(ADHD, Dx_agg='average', G_agg='average', device='cuda')
+    a = DictFact(**kw).prepare(n_samples=ADHD_SAMPLES, X=X)
+    a.partial_fit(X[:half], sample_indices=np.arange(half))
+    t0 = time.perf_counter()
+    save_state(a._state, path)
+    save_s = time.perf_counter() - t0
+    a.partial_fit(X[half:], sample_indices=np.arange(half, ADHD_SAMPLES))
+    b = DictFact(**kw).prepare(n_samples=ADHD_SAMPLES, X=X)
+    t0 = time.perf_counter()
+    b._state = load_state(path)
+    load_s = time.perf_counter() - t0
+    G_loaded = b._state.G_avg
+    b.partial_fit(X[half:], sample_indices=np.arange(half, ADHD_SAMPLES))
+    g_avg_placed = (G_loaded.device.type == 'cpu' and G_loaded.is_pinned()
+                    and b._state.G_avg.device.type == 'cuda')
+    diff = float(np.abs(a.components_ - b.components_).max())
+    phase('checkpoint', pickle_bytes=len(blob), pickle_round_trip_s=(
+        f'{pickle_s:.4f}'), loaded_on=str(D.device), loaded_dtype=str(D.dtype),
+          components_equal=loaded, bcd_launches_after_load=launches,
+          steps_after_load=rows // ADHD['batch_size'],
+          pickle_resume_bitwise=resumed,
+          npz_bytes=os.path.getsize(path), save_s=f'{save_s:.4f}',
+          load_s=f'{load_s:.4f}', g_avg_loaded_on=str(G_loaded.device),
+          g_avg_loaded_pinned=G_loaded.is_pinned(),
+          g_avg_resumed_on=str(b._state.G_avg.device),
+          resume_max_abs_diff=f'{diff:.3e}')
+    if not (loaded and launches == rows // ADHD['batch_size'] and resumed):
+        raise RuntimeError('checkpoint: the unpickled estimator is not on the '
+                           'card in float32 with equal components, or its '
+                           'next partial_fit missed the kernel or diverged')
+    if not g_avg_placed:
+        raise RuntimeError('checkpoint: load_state did not leave G_avg in '
+                           'pinned host RAM, or partial_fit did not move it '
+                           'to the card')
+    if diff != 0.0:
+        raise RuntimeError(f'checkpoint: the resumed run differs from the '
+                           f'uninterrupted one by {diff}')
+    os.remove(path)
+
+
+def each_batch(estimator):
+    """A fit callback that does nothing: with it ``DictFact`` steps batch
+    by batch, B's EMA each step, as an offloaded segment does."""
+
+
+def offload_phase(X, X_test):
+    """HCP-1024 width with Dx_agg=G_agg='average' and G_avg in pinned host
+    RAM: one epoch of 1,200 rows (6 segments of one batch), against the
+    resident fit stepped batch by batch (the segments' math: bitwise
+    expected) and the resident fused epoch (deferred B); host-device copy
+    rates at a segment's size and the device's idle share of one more
+    offloaded partial_fit epoch."""
+    import torch
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.ops import bcd, ema_gemm
+    from modl_tpu_torch.utils.profiling import (StepTimer, device_summary,
+                                                device_trace)
+    kw = dict(HCP, Dx_agg='average', G_agg='average')
+    obj0 = DictFact(**HCP, device='cuda').prepare(
+        n_samples=HCP_SAMPLES, X=X).score(X_test)
+    runs = {'deferred': dict(), 'per_batch': dict(callback=each_batch),
+            'offload': dict(average_offload=True)}
+    out = {}
+    for name, extra in runs.items():
+        timer = StepTimer('cuda')
+        bcd.LAUNCHES = ema_gemm.LAUNCHES = 0
+        with timer.measure():
+            est = DictFact(**kw, **extra, device='cuda').fit(X)
+        out[name] = dict(launches=(bcd.LAUNCHES, ema_gemm.LAUNCHES),
+                         fit_s=timer.total, epoch_s=est.time_,
+                         D=est.components_)
+        if name != 'offload':
+            del est                 # its 5 GB of G_avg leave the card
+            torch.cuda.empty_cache()
+    off = est
+    G_avg = off._state.G_avg
+    cfg = off._cfg
+    steps = HCP_SAMPLES // HCP['batch_size']
+    blocks = bcd_blocks(cfg)
+    D_off = out['offload']['D']
+
+    def rel_diff(name):
+        D = out[name]['D']
+        return float(np.abs(D_off - D).max()) / float(np.abs(D).max())
+
+    rel, rel_deferred = rel_diff('per_batch'), rel_diff('deferred')
+    bitwise = bool(np.array_equal(D_off, out['per_batch']['D']))
+    obj = off.score(X_test)
+    # copy rates at one segment's size, through the fit's staging buffer
+    staging = off._offload_staging
+    dev = torch.empty(staging.shape, dtype=staging.dtype, device='cuda')
+    h2d_ms = cuda_ms(lambda: dev.copy_(staging, non_blocking=True), 3)
+    d2h_ms = cuda_ms(lambda: staging.copy_(dev, non_blocking=True), 3)
+    mb = staging.numel() * staging.element_size() / 1e6
+    del dev
+    # idle share of one more offloaded epoch under the profiler
+    with device_trace(os.path.join(REPO, 'build', 'chip_smoke_trace',
+                                   'offload')) as prof:
+        t0 = time.perf_counter()
+        off.partial_fit(X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = device_summary(prof)[0]
+    launches = out['offload']['launches']
+    phase('offload', k=cfg.n_components, rows=HCP_SAMPLES,
+          features=N_FEATURES, g_avg_device=str(G_avg.device),
+          g_avg_pinned=G_avg.is_pinned(),
+          g_avg_GB=f'{G_avg.numel() * G_avg.element_size() / 1e9:.3f}',
+          segment_rows=staging.shape[0], segment_MB=f'{mb:.1f}',
+          bcd_launches=launches[0], steps=steps, blocks_per_step=blocks,
+          ema_launches=launches[1],
+          **{f'{name}_launches': '/'.join(map(str, out[name]['launches']))
+             for name in ('per_batch', 'deferred')},
+          rel_diff_per_batch=f'{rel:.3e}', bitwise_per_batch=bitwise,
+          rel_diff_deferred=f'{rel_deferred:.3e}',
+          objective=f'{obj:.6g}', objective_init=f'{obj0:.6g}',
+          **{f'{name}_epoch_s': f'{out[name]["epoch_s"]:.4f}'
+             for name in runs},
+          **{f'{name}_fit_s': f'{out[name]["fit_s"]:.4f}' for name in runs},
+          h2d_MBps=f'{mb / h2d_ms * 1e3:.1f}',
+          d2h_MBps=f'{mb / d2h_ms * 1e3:.1f}',
+          profiled_epoch_s=f'{wall:.4f}', device_busy_s=f'{busy:.4f}',
+          idle_share=f'{1 - busy / wall:.4f}')
+    if not (G_avg.device.type == 'cpu' and G_avg.is_pinned()
+            and G_avg.shape == (HCP_SAMPLES, cfg.n_components,
+                                cfg.n_components)):
+        raise RuntimeError(f'offload: G_avg {tuple(G_avg.shape)} on '
+                           f'{G_avg.device}, pinned={G_avg.is_pinned()}')
+    if launches != (steps * blocks, 0) or blocks < 2:
+        raise RuntimeError(f'offload: {launches} BCD and EMA-GEMM '
+                           f'launches, expected ({steps * blocks}, 0)')
+    if not rel <= OFFLOAD_RTOL:
+        raise RuntimeError(f'offload: components differ from the resident '
+                           f'fit by {rel:.3e} of their scale')
+    if not rel_deferred <= OFFLOAD_DEFERRED_RTOL:
+        raise RuntimeError(f'offload: components differ from the resident '
+                           f'fused epoch by {rel_deferred:.3e} of their '
+                           f'scale')
+    if not (math.isfinite(obj) and obj < obj0):
+        raise RuntimeError(f'offload: held-out objective {obj} not below '
+                           f'the initial {obj0}')
+    return launches[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -972,7 +1281,17 @@ def main():
     if not (rel < FIT_RTOL and rel_off < FIT_RTOL):
         raise RuntimeError(f'kernel and plain fits differ: rel {rel} '
                            f'(plain path), {rel_off} (gate off)')
-    del X, X_test, df, off, plain
+    del df, off, plain
+
+    # 4b. float64 data on the card; 4c. pickling and checkpoints
+    dtype_launches = dtype_policy_phase(X, X_test, obj0)
+    workdir = os.path.join(REPO, 'build', 'chip_smoke_checkpoint')
+    os.makedirs(workdir, exist_ok=True)
+    try:
+        checkpoint_phase(X, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del X, X_test
 
     # 5. HCP-1024: the block driver
     X = np.random.RandomState(0).randn(HCP_SAMPLES, N_FEATURES).astype(
@@ -1001,6 +1320,12 @@ def main():
     if not bool(torch.isfinite(D).all()):
         raise RuntimeError('HCP-1024 dictionary not finite')
     del df, off, D
+
+    # 5b. average_offload: G_avg in pinned host RAM at HCP-1024 width
+    offload_launches = offload_phase(
+        X, np.random.RandomState(2).randn(200, N_FEATURES).astype(
+            np.float32))
+    torch.cuda.empty_cache()
 
     # 6. the EMA-GEMM kernel against its plain version
     from modl_tpu_torch.ops.sampler import binomial_len_max
@@ -1044,7 +1369,9 @@ def main():
         'ms_recsys': recsys_case[1], 'plain_ms_recsys': recsys_case[2],
         'bound_ms_recsys': recsys_case[3], 'launches_image': image_launches,
         'ms_image': image_cases[0][1], 'plain_ms_image': image_cases[0][2],
-        'bound_ms_image': image_cases[0][3]}, {
+        'bound_ms_image': image_cases[0][3],
+        'launches_dtype_policy': dtype_launches,
+        'launches_offload': offload_launches}, {
         'name': 'ema_accumulate', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/ema_gemm.cu',
         'replaces': 'modl_tpu/ops/ema_gemm.py:83',

@@ -4,7 +4,8 @@
 
 Runs the recsys_ml10m and image workloads of ``chip_smoke.py``
 (``workloads.py``) under ``torch.profiler`` (a warm-up fit first, then
-the profiled one) and
+the profiled one, through ``utils/profiling.py``; the Chrome traces go
+to ``build/profile_estimators/<label>/trace.json``) and
 prints, for each: the fit's wall time, its device busy time (the sum of
 the device kernels' and copies' times; one stream, so they do not
 overlap), the idle share ``1 - busy / wall``, the host reads of device
@@ -15,33 +16,32 @@ under 1% of the device time); image profiles a one-epoch fit on a
 20,000-patch subset (100 steps of the per-step ``DictFact`` path). Needs
 a CUDA device; prints the card's name and power limit first.
 """
+import os
 import subprocess
 import sys
 import time
 
 import torch
 
+from ..utils.profiling import device_summary, device_trace
+
 TOP = 12
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         os.pardir, os.pardir, 'build',
+                         'profile_estimators')
 
 
 def _profile(label, fit, units):
     """Profile ``fit()`` (a warm-up call first) and print the summary;
     ``units()`` adds fields read after the fit."""
-    from torch.profiler import ProfilerActivity, profile
     fit()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace(os.path.join(TRACE_DIR, label)) as prof:
         t0 = time.perf_counter()
         fit()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device = [e for e in events if e.device_type.name == 'CUDA']
-    busy = sum(e.self_device_time_total for e in device) / 1e6
-    reads = sum(e.count for e in events
-                if e.key == 'aten::_local_scalar_dense')
-    launches = sum(e.count for e in device)
+    busy, launches, reads, device = device_summary(prof)
     print(f'profile={label} wall_s={wall:.4f} device_busy_s={busy:.4f} '
           f'idle_share={1 - busy / wall:.4f} device_ops={launches} '
           f'host_reads={reads} {units()}', flush=True)

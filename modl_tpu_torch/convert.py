@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .decomposition._step import SomfConfig, SomfState
+from .decomposition._step import SomfConfig, state_from_numpy
 from .input_data.fmri.base import NumpyMasker
 
 __all__ = ["state_from_jax", "config_from_jax", "masker_from_jax",
@@ -24,40 +24,25 @@ def state_from_jax(state_np, device='cpu', dtype=None, seed=0):
     """Port-side :class:`SomfState` from a JAX ``SomfState`` on the host.
 
     ``state_np`` maps field names to numpy arrays (or None). Float leaves
-    go to ``device`` in ``dtype`` (default: the dictionary's dtype); the
-    sampler's ``box`` stays on the host and ``cursor``/``n_iter`` become
+    go to ``device`` in ``dtype`` (default: the dictionary's dtype),
+    ``G_avg`` to host RAM, where an estimator's next ``partial_fit``
+    places it (``_step.state_from_numpy``); the sampler's ``box`` stays
+    on the host and ``cursor``/``n_iter`` become
     ints. The JAX PRNG ``key`` has no counterpart and is dropped: the
     port's host generator is seeded with ``seed`` instead.
     """
     if dtype is None:
         dtype = getattr(torch, np.asarray(state_np['D']).dtype.name)
-
-    def dev(name, dt=dtype):
-        v = state_np.get(name)
-        if v is None:
-            return None
-        return torch.as_tensor(np.array(v)).to(device, dt)
-
-    return SomfState(
-        D=dev('D'), C=dev('C'), B=dev('B'), G=dev('G'),
-        comp_norm=dev('comp_norm'), code=dev('code'),
-        Dx_avg=dev('Dx_avg'), G_avg=dev('G_avg'),
-        n_iter=int(state_np['n_iter']),
-        sample_n_iter=dev('sample_n_iter', torch.int64),
-        box=torch.as_tensor(np.array(state_np['box'], dtype=np.int64)),
-        cursor=int(state_np['cursor']),
-        gen=torch.Generator().manual_seed(int(seed)),
-    )
+    return state_from_numpy(state_np, device, dtype, seed=seed)
 
 
 def config_from_jax(cfg):
     """Port-side :class:`SomfConfig` from a JAX ``SomfConfig``.
 
-    ``use_pallas`` becomes ``use_kernel``; a mesh or ``average_offload``
-    has no counterpart in the port yet and is refused."""
-    if getattr(cfg, 'mesh', None) is not None or getattr(
-            cfg, 'average_offload', False):
-        raise ValueError('meshes and average_offload are not ported')
+    ``use_pallas`` becomes ``use_kernel``; a mesh has no counterpart in
+    the port yet and is refused."""
+    if getattr(cfg, 'mesh', None) is not None:
+        raise ValueError('meshes are not ported')
     fields = {f.name for f in dataclasses.fields(SomfConfig)}
     values = {name: getattr(cfg, name) for name in fields
               if name != 'use_kernel'}

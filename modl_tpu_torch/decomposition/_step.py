@@ -6,7 +6,11 @@ Counterpart of ``modl_tpu/decomposition/_step.py``. One step runs
     block coordinate descent on the dictionary (subset columns only)
 
 and ``somf_scan`` runs an epoch over device-resident minibatches with
-B's full-width EMA deferred across segments. PyTorch runs eagerly, so the
+B's full-width EMA deferred across segments; ``offload_scan`` runs a
+segment of an ``average_offload`` epoch, whose ``G_avg`` stays in host
+RAM. ``state_to_numpy``/``state_from_numpy`` carry the state to the
+host and back under the JAX package's field names (pickles,
+checkpoints). PyTorch runs eagerly, so the
 state is a plain dataclass of tensors (it carries no gradients) updated
 in place where JAX's immutability forced copies: the windowed D
 write-back, the B EMA, the per-sample statistics and the deferred-B
@@ -19,6 +23,8 @@ the alternatives. ``comp_pos`` clamps only the atom being updated, as
 in the JAX package (its module docstring explains the deviation from
 the reference).
 """
+import dataclasses
+import zlib
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -60,7 +66,7 @@ class SomfState:
 @dataclass(frozen=True)
 class SomfConfig:
     """Static solver configuration (``modl_tpu`` ``SomfConfig`` without
-    the mesh and host-offload fields; ``use_kernel`` is ``use_pallas``)."""
+    the mesh field; ``use_kernel`` is ``use_pallas``)."""
     n_components: int
     len_subset: int
     reduction: float
@@ -86,6 +92,8 @@ class SomfConfig:
                                     # fixed feature order (mirror-padded
                                     # storage); subsets are window starts
     n_features: int = 0             # logical feature count (windowed)
+    average_offload: bool = False   # G_avg in host RAM, exchanged per
+                                    # segment (offload_scan)
 
 
 class Draws(NamedTuple):
@@ -489,6 +497,141 @@ def somf_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
             state.B.addmm_(SC.T, Xseg, beta=float(pi))
         pos += L
     return state
+
+
+def offload_supported(device):
+    """Whether ``average_offload`` runs on ``device``: CUDA (``G_avg`` in
+    pinned host RAM) or the CPU (plain host memory; the same segmented
+    code runs)."""
+    return torch.device(device).type in ('cuda', 'cpu')
+
+
+def host_zeros(shape, dtype, device):
+    """Zeros in host memory, pinned when the learner is on CUDA (the
+    offloaded ``G_avg``; never staged through a device tensor)."""
+    return torch.zeros(shape, dtype=dtype,
+                       pin_memory=torch.device(device).type == 'cuda')
+
+
+def offload_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
+                 draws: Draws, staging):
+    """One segment of an ``average_offload`` epoch (the JAX package's
+    ``_offload_scan_body``): ``G_avg`` lives in host RAM and only the
+    segment's rows visit the device.
+
+    The rows the segment's sample indices ``idx_batches`` (T, b; CPU)
+    touch are gathered once: ``G_avg``'s from host RAM into the pinned
+    ``staging`` buffer (at least as many rows) and on to the device, the
+    device-resident per-sample leaves by row. The T steps then run on
+    segment-local indices with an inner configuration that has
+    ``average_offload`` off (per-step B EMA, no deferred segments, as the
+    reference steps ``somf_step``), and the rows are scattered back at
+    the segment's end. Repeated indices map to one local row, so the
+    segment sees what the resident state would.
+
+    All copies run on the current stream: the gather into ``staging``
+    finishes on the host before its copy to the device is queued, and the
+    scatter into ``G_avg`` waits for the copy back, so neither ``G_avg``
+    nor ``staging`` changes while a copy is in flight."""
+    device = state.D.device
+    T = X_batches.shape[0]
+    rows, local = torch.unique(idx_batches.reshape(-1), return_inverse=True)
+    rows_dev = rows.to(device)
+    local = local.reshape(idx_batches.shape).to(device)
+    buf = staging[:rows.shape[0]]
+    torch.index_select(state.G_avg, 0, rows, out=buf)
+
+    def gather(leaf):
+        return None if leaf is None else leaf[rows_dev]
+
+    seg = dataclasses.replace(
+        state, G_avg=buf.to(device, non_blocking=True),
+        Dx_avg=gather(state.Dx_avg), code=gather(state.code),
+        sample_n_iter=state.sample_n_iter[rows_dev])
+    inner = dataclasses.replace(cfg, average_offload=False)
+    orders = draws.orders.to(device, torch.int32)
+    for t in range(T):
+        somf_step_inner(seg, X_batches[t], local[t],
+                        _to_device(draws.subsets[t], device), orders[t],
+                        inner, n_valid=draws.sizes[t])
+    buf.copy_(seg.G_avg, non_blocking=True)
+    if device.type == 'cuda':
+        torch.cuda.current_stream(device).synchronize()
+    state.G_avg.index_copy_(0, rows, buf)
+    for name in ('Dx_avg', 'code', 'sample_n_iter'):
+        leaf = getattr(state, name)
+        if leaf is not None:
+            leaf[rows_dev] = getattr(seg, name)
+    for name in ('D', 'B', 'C', 'G', 'comp_norm', 'n_iter'):
+        setattr(state, name, getattr(seg, name))
+    return state
+
+
+# the leaves of the JAX package's SomfState that hold floats
+_FLOAT_LEAVES = ('D', 'C', 'B', 'G', 'comp_norm', 'code', 'Dx_avg', 'G_avg')
+
+
+def state_to_numpy(state: SomfState):
+    """Host copy of a state under the JAX package's field names and
+    dtypes, so that either package loads what the other saved.
+
+    ``gen_state`` (uint8) holds the port's generator, so that a port-saved
+    state resumes bit for bit; ``key`` is a valid threefry key (uint32[2])
+    derived from it, with which the JAX package resumes on its own
+    trajectory."""
+    out = {name: (None if getattr(state, name) is None
+                  else getattr(state, name).detach().cpu().numpy())
+           for name in _FLOAT_LEAVES}
+    gen_state = state.gen.get_state().numpy()
+    out.update(
+        n_iter=np.asarray(state.n_iter, np.int32),
+        sample_n_iter=state.sample_n_iter.cpu().numpy().astype(np.int32),
+        box=state.box.numpy().astype(np.int32),
+        cursor=np.asarray(state.cursor, np.int32),
+        key=np.array([0, zlib.crc32(gen_state.tobytes())], np.uint32),
+        gen_state=gen_state)
+    return out
+
+
+def seed_from_key(key):
+    """A generator seed from a JAX threefry key (uint32[2])."""
+    hi, lo = (int(w) for w in np.asarray(key, np.uint32))
+    return hi << 32 | lo
+
+
+def state_from_numpy(arrays, device, dtype, seed=None):
+    """A :class:`SomfState` from host arrays under the JAX package's
+    field names (:func:`state_to_numpy`, or a JAX state on the host).
+
+    Float leaves go to ``device`` in ``dtype`` (a torch dtype), but
+    ``G_avg`` stays in host RAM (pinned when ``device`` is CUDA): the
+    estimator's next ``partial_fit`` places it where its configuration
+    keeps it. ``box`` stays on the host.
+    The generator takes ``gen_state`` where there is one, else it is
+    seeded with ``seed`` (default: :func:`seed_from_key` of ``key``)."""
+    def leaf(name):
+        v = arrays.get(name)
+        if v is None:
+            return None
+        v = torch.as_tensor(np.array(v))
+        if name == 'G_avg':
+            return host_zeros(v.shape, dtype, device).copy_(v)
+        return v.to(device, dtype)
+
+    gen = torch.Generator()
+    if arrays.get('gen_state') is not None:
+        gen.set_state(torch.as_tensor(np.array(arrays['gen_state'],
+                                               np.uint8)))
+    else:
+        gen.manual_seed(seed_from_key(arrays['key']) if seed is None
+                        else int(seed))
+    return SomfState(
+        **{name: leaf(name) for name in _FLOAT_LEAVES},
+        n_iter=int(arrays['n_iter']),
+        sample_n_iter=torch.as_tensor(
+            np.array(arrays['sample_n_iter'], np.int64)).to(device),
+        box=torch.as_tensor(np.array(arrays['box'], np.int64)),
+        cursor=int(arrays['cursor']), gen=gen)
 
 
 @precise

@@ -12,15 +12,22 @@ windowed subsets of one fixed feature order for resident fits, and
 seeds that reproduce this package's own runs, not the reference's or
 the JAX package's bits.
 
-``dtype=None`` takes X's dtype: float64 stays float64 (the JAX package
-does the same with x64 on), anything else than float32/float64 becomes
-float32. The Hopper BCD kernel runs for float32 state on CUDA; float64
-and CPU runs take the plain PyTorch path.
+``dtype=None`` takes X's dtype. On CUDA float64 becomes float32, as in
+the JAX package without x64 (its TPU setting), and the Hopper BCD kernel
+runs on the float32 state; an explicit ``dtype=np.float64`` raises
+there. On the CPU float64 stays float64 (the JAX package's x64 mode) and
+every run takes the plain PyTorch path. Anything else than
+float32/float64 becomes float32.
+
+``average_offload=True`` keeps ``G_avg`` (n_samples, k, k) in host RAM,
+pinned on CUDA, and moves only a segment's rows to the card
+(``_step.offload_scan``; segments of ``OFFLOAD_SEG_BYTES``).
 
 ``set_params`` carries the JAX package's mid-run hooks: the Gram
 upgrade, the lazy 'average' allocation and the windowed re-layout
 (``fMRIDictFact`` changes ``reduction`` and ``G_agg`` between epochs).
-Not ported yet: pickling of device state.
+Estimators pickle their state as host numpy (``_PickleStateMixin``)
+and place it on their ``device`` when loaded.
 """
 import dataclasses
 import time
@@ -34,13 +41,32 @@ from ..base import (BaseEstimator, TransformerMixin, check_array,
 from ..ops.enet import enet_scale
 from ..ops.sampler import binomial_len_max, init_sampler_state
 from ._step import (SomfConfig, SomfState, compute_code, draw_epoch,
-                    objective_value, somf_scan, somf_step)
+                    host_zeros, objective_value, offload_scan,
+                    offload_supported, somf_scan, somf_step,
+                    state_from_numpy, state_to_numpy)
 
 MAX_INT = np.iinfo(np.int32).max
 
+# device residency of one average_offload segment: the G_avg rows of
+# seg * batch_size samples, (seg * batch_size, k, k)
+OFFLOAD_SEG_BYTES = 512 * 1024 * 1024
 
-def _default_dtype(dtype):
+
+def _default_dtype(dtype, device, explicit=False):
+    """The learner's state dtype on ``device`` for a requested ``dtype``.
+
+    On CUDA float64 becomes float32, as the JAX package maps it without
+    x64 (its TPU setting), so that the BCD kernel runs; an ``explicit``
+    float64 (the estimator's ``dtype`` parameter) raises there instead.
+    On the CPU float64 stays float64. Anything else than float32/float64
+    becomes float32."""
     dtype = np.dtype(dtype)
+    if torch.device(device).type == 'cuda' and dtype == np.float64:
+        if explicit:
+            raise ValueError('the CUDA BCD kernel takes float32 state, got '
+                             'dtype=float64; float64 fits run with '
+                             'device="cpu"')
+        return np.dtype(np.float32)
     if dtype not in (np.dtype(np.float32), np.dtype(np.float64)):
         return np.dtype(np.float32)
     return dtype
@@ -58,7 +84,43 @@ def _resolve_device(device):
     return device
 
 
-class CodingMixin(TransformerMixin):
+class _PickleStateMixin:
+    """Pickle device state as host numpy and place it with
+    ``_resolve_device(self.device)`` on load (the JAX package's mixin of
+    the same name): an estimator pickled with ``device='cuda'`` loads
+    onto the card, or raises where there is none.
+
+    ``_state`` (a :class:`SomfState`) goes through ``state_to_numpy``,
+    with the generator's state, and comes back with ``G_avg`` in host
+    RAM, where the next ``partial_fit`` places it; the tensor attributes
+    named in ``_DEVICE_FIELDS`` go as plain arrays; ``_offload_staging``,
+    a transient buffer, is dropped."""
+
+    _DEVICE_FIELDS = ()
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        if state.get('_state') is not None:
+            state['_state'] = state_to_numpy(state['_state'])
+        for name in self._DEVICE_FIELDS:
+            if state.get(name) is not None:
+                state[name] = state[name].cpu().numpy()
+        state.pop('_offload_staging', None)
+        return state
+
+    def __setstate__(self, state):
+        device = _resolve_device(state['device'])
+        arrays = state.get('_state')
+        if arrays is not None:
+            state['_state'] = state_from_numpy(
+                arrays, device, _torch_dtype(arrays['D'].dtype))
+        for name in self._DEVICE_FIELDS:
+            if state.get(name) is not None:
+                state[name] = torch.as_tensor(state[name]).to(device)
+        self.__dict__ = state
+
+
+class CodingMixin(_PickleStateMixin, TransformerMixin):
     """Shared transform/score over a fitted dictionary."""
 
     def _set_coding_params(self, n_components, code_alpha=1,
@@ -132,9 +194,9 @@ class CodingMixin(TransformerMixin):
                 D = D[:, torch.tensor(self._feat_inv, device=D.device)]
             return D
         D = np.asarray(self.components_)
-        dtype = _default_dtype(D.dtype)
-        return torch.as_tensor(D.astype(dtype, copy=False)).to(
-            _resolve_device(self.device))
+        device = _resolve_device(self.device)
+        dtype = _default_dtype(D.dtype, device)
+        return torch.as_tensor(D.astype(dtype, copy=False)).to(device)
 
 
 class DictFact(CodingMixin, BaseEstimator):
@@ -145,8 +207,8 @@ class DictFact(CodingMixin, BaseEstimator):
             + code_alpha * (code_l1_ratio ||A||_1
                             + (1 - code_l1_ratio)/2 ||A||_2^2)
     touching only ``n_features / reduction`` random feature columns per
-    step. Parameters mirror ``modl_tpu.DictFact`` without ``mesh`` and
-    ``average_offload``; ``device`` places the learner state.
+    step. Parameters mirror ``modl_tpu.DictFact`` without ``mesh``;
+    ``device`` places the learner state.
     """
 
     def __init__(self,
@@ -176,6 +238,7 @@ class DictFact(CodingMixin, BaseEstimator):
                  replacement=True,
                  dtype=None,
                  code_solver='auto',
+                 average_offload=False,
                  subset_sampling='auto',
                  device='cuda',
                  ):
@@ -204,6 +267,7 @@ class DictFact(CodingMixin, BaseEstimator):
         self.replacement = replacement
         self.dtype = dtype
         self.code_solver = code_solver
+        self.average_offload = average_offload
         self.subset_sampling = subset_sampling
 
     # ------------------------------------------------------------------ #
@@ -263,6 +327,7 @@ class DictFact(CodingMixin, BaseEstimator):
             code_solver=code_solver,
             windowed=windowed,
             n_features=int(n_features) if windowed else 0,
+            average_offload=bool(self.average_offload),
         )
 
     def prepare(self, n_samples=None, n_features=None, dtype=None, X=None):
@@ -286,8 +351,8 @@ class DictFact(CodingMixin, BaseEstimator):
         if self.optimizer not in ('variational', 'sgd'):
             raise ValueError("optimizer should be 'variational' or 'sgd'")
         if self.dtype is not None:
-            dtype = self.dtype
-        dtype = _default_dtype(dtype)
+            dtype = _default_dtype(self.dtype, device, explicit=True)
+        dtype = _default_dtype(dtype, device)
         tdtype = _torch_dtype(dtype)
 
         self.random_state = check_random_state(self.random_state)
@@ -306,6 +371,9 @@ class DictFact(CodingMixin, BaseEstimator):
                        float(self.comp_l1_ratio), radius=1.0)
 
         cfg = self._make_config(n_features, dtype)
+        if cfg.average_offload and not offload_supported(device):
+            raise ValueError(f'average_offload runs on CUDA or the CPU, '
+                             f'not on {device}')
         self._cfg = cfg
         self._n_features = int(n_features)
         self._n_samples = int(n_samples)
@@ -347,8 +415,8 @@ class DictFact(CodingMixin, BaseEstimator):
             comp_norm=zeros(k),
             code=torch.ones((n_samples, k), dtype=tdtype, device=device),
             Dx_avg=zeros(n_samples, k) if cfg.Dx_agg == 'average' else None,
-            G_avg=(zeros(n_samples, k, k) if cfg.G_agg == 'average'
-                   else None),
+            G_avg=(self._avg_zeros(tdtype, device)
+                   if cfg.G_agg == 'average' else None),
             n_iter=0,
             sample_n_iter=torch.zeros(n_samples, dtype=torch.int64,
                                       device=device),
@@ -399,7 +467,7 @@ class DictFact(CodingMixin, BaseEstimator):
 
     @property
     def G_average_(self):
-        A = self._state.G_avg
+        A = self._state.G_avg      # in host RAM under average_offload
         return A.cpu().numpy() if A is not None else None
 
     @property
@@ -469,17 +537,26 @@ class DictFact(CodingMixin, BaseEstimator):
         n = X_dev.shape[0]
         b = min(self.batch_size, n)
         cfg = self._cfg
+        offload = self._place_g_avg()
+        # an offloaded G_avg is gathered on the host, so its indices stay
+        # there; a resident state takes them on the device
+        idx_device = torch.device('cpu') if offload else device
         if sample_indices is None:
-            idx = torch.arange(n, device=device)
+            idx = torch.arange(n, device=idx_device)
         elif isinstance(sample_indices, slice):
             idx = torch.arange(sample_indices.start, sample_indices.stop,
-                               device=device)
+                               device=idx_device)
         else:
             idx = torch.as_tensor(np.asarray(sample_indices),
-                                  dtype=torch.int64).to(device)
+                                  dtype=torch.int64).to(idx_device)
 
         n_full = n // b
-        if bool(self.verbose) or self.callback is not None:
+        interactive = bool(self.verbose) or self.callback is not None
+        if offload and not interactive:
+            # a segment scatters each of its rows back once, so repeated
+            # indices step batch by batch, as in the JAX package
+            interactive = torch.unique(idx).shape[0] < n
+        if interactive:
             for batch in gen_batches(n, b):
                 if (self.verbose and getattr(self, 'verbose_iter_', None)
                         and self.n_iter_ >= self.verbose_iter_[0]):
@@ -488,20 +565,83 @@ class DictFact(CodingMixin, BaseEstimator):
                     self._callback()
                 elif not self.verbose and self.callback is not None:
                     self._callback()
-                self._state = somf_step(self._state, X_dev[batch],
-                                        idx[batch], cfg)
+                self._step_batch(X_dev[batch], idx[batch], offload)
         else:
-            if n_full > 0:
+            if n_full > 0 and offload:
+                # segments of OFFLOAD_SEG_BYTES of G_avg rows; leftover
+                # full batches run one by one
+                k2 = (self.n_components ** 2
+                      * np.dtype(self._dtype).itemsize)
+                seg = min(max(1, int(OFFLOAD_SEG_BYTES // (b * k2))),
+                          n_full)
+                n_seg = n_full // seg
+                for s in range(n_seg):
+                    lo, hi = s * seg * b, (s + 1) * seg * b
+                    self._offload_segment(X_dev[lo:hi].reshape(seg, b, -1),
+                                          idx[lo:hi].reshape(seg, b))
+                for s in range(n_seg * seg, n_full):
+                    self._step_batch(X_dev[s * b:(s + 1) * b],
+                                     idx[s * b:(s + 1) * b], offload)
+            elif n_full > 0:
                 draws = draw_epoch(self._state, cfg, n_full)
                 self._state = somf_scan(
                     self._state, X_dev[:n_full * b].reshape(n_full, b, -1),
                     idx[:n_full * b].reshape(n_full, b), cfg, draws)
             if n_full * b < n:
-                self._state = somf_step(self._state, X_dev[n_full * b:],
-                                        idx[n_full * b:], cfg)
+                self._step_batch(X_dev[n_full * b:], idx[n_full * b:],
+                                 offload)
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         self.time_ += time.perf_counter() - t0
+
+    def _step_batch(self, X_dev, idx, offload):
+        """One minibatch: ``somf_step``, or a segment of one batch."""
+        if offload:
+            self._offload_segment(X_dev[None], idx[None])
+        else:
+            self._state = somf_step(self._state, X_dev, idx, self._cfg)
+
+    def _offload_segment(self, X_batches, idx_batches):
+        self._state = offload_scan(
+            self._state, X_batches, idx_batches, self._cfg,
+            draw_epoch(self._state, self._cfg, X_batches.shape[0]),
+            self._staging(idx_batches.numel()))
+
+    def _staging(self, rows):
+        """The pinned host buffer an offload segment's G_avg rows pass
+        through, kept across calls and grown to ``rows`` on demand."""
+        buf = getattr(self, '_offload_staging', None)
+        if buf is None or buf.shape[0] < rows:
+            G_avg = self._state.G_avg
+            buf = torch.empty((rows,) + G_avg.shape[1:], dtype=G_avg.dtype,
+                              pin_memory=G_avg.is_pinned())
+            self._offload_staging = buf
+        return buf
+
+    def _avg_zeros(self, dtype, device):
+        """Zeroed G_avg: in host RAM under ``average_offload`` (pinned on
+        CUDA, never staged through a device tensor), else on the
+        device."""
+        shape = (self._n_samples, self.n_components, self.n_components)
+        if self.average_offload:
+            return host_zeros(shape, dtype, device)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def _place_g_avg(self):
+        """Move G_avg where the configuration keeps it (a loaded or
+        unpickled state has it in host RAM; ``set_params`` may toggle
+        ``average_offload``). Returns whether the epoch is offloaded."""
+        st = self._state
+        if st.G_avg is None:
+            return False
+        device = st.D.device
+        if self._cfg.average_offload:
+            if st.G_avg.device.type != 'cpu':
+                st.G_avg = host_zeros(st.G_avg.shape, st.G_avg.dtype,
+                                      device).copy_(st.G_avg)
+            return True
+        st.G_avg = st.G_avg.to(device)
+        return False
 
     def _callback(self):
         if self.callback is not None:
@@ -515,8 +655,17 @@ class DictFact(CodingMixin, BaseEstimator):
         perm_dev = torch.as_tensor(perm, device=st.D.device)
         for name in ('code', 'G_avg', 'Dx_avg', 'sample_n_iter'):
             arr = getattr(st, name)
-            if arr is not None:
-                setattr(st, name, arr[perm_dev])
+            if arr is None:
+                continue
+            if arr.device != st.D.device:
+                # the offloaded G_avg: permuted in host RAM, kept pinned
+                out = torch.empty(arr.shape, dtype=arr.dtype,
+                                  pin_memory=arr.is_pinned())
+                arr = torch.index_select(arr, 0, torch.as_tensor(perm),
+                                         out=out)
+            else:
+                arr = arr[perm_dev]
+            setattr(st, name, arr)
         self.labels_ = self.labels_[perm]
         return perm
 
@@ -551,7 +700,7 @@ class DictFact(CodingMixin, BaseEstimator):
             if self.Dx_agg == 'average' and st.Dx_avg is None:
                 st.Dx_avg = zeros(self._n_samples, k)
             if self.G_agg == 'average' and st.G_avg is None:
-                st.G_avg = zeros(self._n_samples, k, k)
+                st.G_avg = self._avg_zeros(st.D.dtype, st.D.device)
         if hasattr(self, '_n_features'):
             old_cfg = getattr(self, '_cfg', None)
             new_cfg = self._make_config(self._n_features)

@@ -31,7 +31,7 @@ import torch
 from ..base import TransformerMixin, check_random_state
 from ..input_data.fmri.base import BaseNilearnEstimator
 from ..ops.precision import precise
-from .dict_fact import Coder, DictFact, _torch_dtype
+from .dict_fact import Coder, DictFact, _PickleStateMixin, _torch_dtype
 
 # largest record the prefetch ring stages on the card ahead of use
 # (bigger records transfer when they are trained on, so that PREFETCH + 1
@@ -163,7 +163,8 @@ def _check_dict_init(dict_init, masker, n_components=None):
     return components
 
 
-class fMRICoderMixin(BaseNilearnEstimator, TransformerMixin):
+class fMRICoderMixin(_PickleStateMixin, BaseNilearnEstimator,
+                     TransformerMixin):
     """Masker + fixed-dictionary coding over image lists."""
 
     def __init__(self, n_components=20, alpha=0.1, dict_init=None,

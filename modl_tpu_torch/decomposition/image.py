@@ -21,7 +21,7 @@ import numpy as np
 from ..base import BaseEstimator, check_random_state
 from ..feature_extraction.image import LazyCleanPatchExtractor
 from ..input_data.image import scale_patches
-from .dict_fact import DictFact
+from .dict_fact import DictFact, _PickleStateMixin
 
 __all__ = ["ImageDictFact", "DictionaryScorer"]
 
@@ -91,7 +91,7 @@ class _PatchStream:
         return self._extractor.n_patches_
 
 
-class ImageDictFact(BaseEstimator):
+class ImageDictFact(_PickleStateMixin, BaseEstimator):
     """Dictionary / NMF decomposition of image patches via SOMF."""
 
     methods = PATCH_METHODS

@@ -42,7 +42,7 @@ from ..ops.precision import precise
 from ..ops.solvers import _cholesky
 from ..ops.weights import batch_weight
 from ._step import _np_dtype, bcd_kernel
-from .dict_fact import _resolve_device, _torch_dtype
+from .dict_fact import _PickleStateMixin, _resolve_device, _torch_dtype
 
 __all__ = ["RecsysDictFact", "compute_biases", "rmse"]
 
@@ -246,7 +246,7 @@ def _check_csr(X, copy=False):
     return X
 
 
-class RecsysDictFact(BaseEstimator):
+class RecsysDictFact(_PickleStateMixin, BaseEstimator):
     """Masked matrix-factorisation estimator for sparse ratings.
 
     Parameters mirror ``modl_tpu.RecsysDictFact`` without ``mesh``:
@@ -400,24 +400,8 @@ class RecsysDictFact(BaseEstimator):
         if self.callback is not None:
             self.callback(self)
 
-    # pickling: device tensors as host numpy ---------------------------- #
-
+    # pickled as host numpy by _PickleStateMixin
     _DEVICE_FIELDS = ('_D', '_C', '_B', '_code')
-
-    def __getstate__(self):
-        state = dict(self.__dict__)
-        for f in self._DEVICE_FIELDS:
-            if state.get(f) is not None:
-                state[f] = ('__np__', state[f].cpu().numpy())
-        return state
-
-    def __setstate__(self, state):
-        device = _resolve_device(state['device'])
-        for f in self._DEVICE_FIELDS:
-            v = state.get(f)
-            if isinstance(v, tuple) and v and v[0] == '__np__':
-                state[f] = torch.as_tensor(v[1]).to(device)
-        self.__dict__ = state
 
     # views ---------------------------------------------------------------- #
 

@@ -7,7 +7,9 @@ Counterpart of ``modl_tpu/ops/enet.py`` (itself the reference's
 - ``enet_scale``      closed-form scaling onto the ball
 - ``enet_projection`` exact projection: a descending sort plus
   cumulative sums find the support size ``rho`` and the threshold of
-  enet.pyx:113-121, batched over rows (``enet_projection_batch``).
+  enet.pyx:113-121, batched over rows (``enet_projection_batch``)
+- ``enet_projection_bisect`` the same projection without a sort:
+  bisection on the shrinkage threshold.
 
 ``l1_ratio`` is a Python float that selects the code path; ``radius``
 may be a tensor (per row for the batched form).
@@ -15,7 +17,7 @@ may be a tensor (per row for the batched form).
 import torch
 
 __all__ = ["enet_norm", "enet_scale", "enet_projection",
-           "enet_projection_batch"]
+           "enet_projection_batch", "enet_projection_bisect"]
 
 
 def enet_norm(v, l1_ratio, axis=-1):
@@ -93,3 +95,39 @@ def enet_projection(v, radius, l1_ratio):
     """Projection of one vector ``v`` (m,) on the elastic-net ball."""
     return enet_projection_batch(v[None, :], torch.as_tensor(
         radius, dtype=v.dtype, device=v.device).reshape(1), l1_ratio)[0]
+
+
+def enet_projection_bisect(v, radius, l1_ratio, n_iter=40):
+    """Projection of ``v`` (m,) on the elastic-net ball by bisection on
+    the shrinkage threshold (``modl_tpu.ops.enet.enet_projection_bisect``).
+
+    The KKT threshold ``lam`` solves the monotone scalar equation
+    ``norm(w(lam)) = radius`` with ``w(lam) = sign(v) max(|v| - lam, 0)
+    / (1 + lam gamma)``; ``n_iter`` halvings of ``[0, max |v|]`` reach
+    ~2^-n_iter of it, with no sort. ``l1_ratio == 0`` takes the exact
+    l2 scaling."""
+    dtype = v.dtype
+    radius = torch.as_tensor(radius, dtype=dtype, device=v.device)
+    if l1_ratio == 0.0:
+        return enet_projection(v, radius, l1_ratio)
+
+    gamma = 2.0 / l1_ratio - 2.0
+    r = radius / l1_ratio
+    b = torch.abs(v)
+    norm = torch.sum(b * (1.0 + gamma / 2.0 * b))
+
+    def scaled_norm(lam):
+        w = torch.clamp(b - lam, min=0.0) / (1.0 + lam * gamma)
+        return torch.sum(w * (1.0 + gamma / 2.0 * w))
+
+    lo = torch.zeros((), dtype=dtype, device=v.device)
+    hi = torch.max(b)
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        too_big = scaled_norm(mid) > r
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    lam = 0.5 * (lo + hi)
+    shrunk = torch.sign(v) * torch.clamp(b - lam, min=0.0) \
+        / (1.0 + lam * gamma)
+    out = torch.where(norm <= r, v, shrunk)
+    return torch.where(radius > 0, out, torch.zeros_like(v))

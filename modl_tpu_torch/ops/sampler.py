@@ -22,10 +22,12 @@ step zero-masks columns ``>= m``.
 """
 import math
 
+import numpy as np
 import torch
 
 __all__ = ["binomial_len_max", "init_sampler_state", "draw_window",
-           "draw_window_sized", "draw_subset", "draw_subset_sized"]
+           "draw_window_sized", "draw_subset", "draw_subset_sized",
+           "Sampler"]
 
 
 def binomial_len_max(n_features, len_subset):
@@ -109,3 +111,58 @@ def draw_subset_sized(box, cursor, gen, len_subset, len_max, replacement):
     subset, box, cursor = _draw_box(box, cursor, gen, len_subset, len_max,
                                     m, replacement)
     return subset, m, box, cursor
+
+
+class Sampler:
+    """Host-side eager sampler, API-compatible with the reference class.
+
+    Parameters mirror ``sampler.pyx:10-39``: ``range_`` (number of
+    features), ``rand_size`` (Binomial subset sizes), ``replacement``
+    (reshuffle per call vs cycling partition), ``random_seed``.
+
+    The cycling state is expressed as (feature order, consumed-prefix
+    cursor), as in the gather-mode draws above, rather than the
+    reference's in-place box swaps; the emitted subset
+    sequences satisfy the identical contracts (each draw is disjoint
+    from the cycle's previous draws; a partial tail at a cycle boundary
+    is served first, in order, before the refilled pool).
+    """
+
+    def __init__(self, range_, rand_size=True, replacement=True,
+                 random_seed=None):
+        self.range = int(range_)
+        self.rand_size = bool(rand_size)
+        self.replacement = bool(replacement)
+        self.random_state = np.random.RandomState(random_seed)
+        self.box = self.random_state.permutation(self.range)
+        self.cursor = 0  # features before the cursor were already served
+
+    def _draw_size(self, reduction):
+        if self.rand_size:
+            return int(self.random_state.binomial(self.range,
+                                                  1.0 / reduction))
+        return int(self.range / reduction)
+
+    def yield_subset(self, reduction):
+        n = self.range
+        m = self._draw_size(reduction)
+        if self.replacement or m >= n:
+            # i.i.d. draws: a fresh order every call, take its prefix
+            self.box = self.random_state.permutation(self.box)
+            self.cursor = min(m, n)
+            return self.box[:self.cursor].copy()
+        left = n - self.cursor
+        if left == 0:
+            # cycle exhausted exactly: refill with a full reshuffle
+            self.box = self.random_state.permutation(self.box)
+            self.cursor = 0
+        elif left < m:
+            # cycle boundary mid-draw: the not-yet-served tail moves to
+            # the front (order preserved) and the served part is
+            # reshuffled behind it (sampler.pyx:59-64 semantics)
+            served = self.random_state.permutation(self.box[:self.cursor])
+            self.box = np.concatenate([self.box[self.cursor:], served])
+            self.cursor = 0
+        out = self.box[self.cursor:self.cursor + m].copy()
+        self.cursor += m
+        return out
