@@ -47,6 +47,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    objective below the initial dictionary's, the fits' times
    (``StepTimer``), the host-device copy rates of a segment and the
    device's idle share of one more offloaded epoch (``torch.profiler``);
+   then mesh: the dp x feat mesh of ``modl_tpu_torch.parallel`` in
+   worlds started by ``parallel.launch.spawn``: ADHD-70 over NCCL on
+   every visible card (up to four) as (world, 1) (on four cards every
+   leg below instead), then four gloo ranks on card 0 with ADHD-70 on
+   (4, 1) and (2, 2), HCP-1024 on (2, 2), ADHD-70 with
+   ``G_agg='average'`` on (4, 1) (``G_avg`` split over dp) and the
+   recsys fit of phase 10 (one epoch) on (4, 1); each leg after a
+   warm-up fit, with the kernels' launches per rank (equal to the
+   single-process fit's), the collectives and MB per step
+   (``parallel.mesh.COLLECTIVES``), the epoch time, and the components
+   within 1e-4 of max |D| of the single-process fit (recsys: and the
+   test RMSE within 1e-3);
 6. ema_kernel: the EMA-GEMM kernel (3xTF32 on the tensor cores) against
    its plain version at the segment-end shapes of the fMRI legs and of the
    resident ADHD-70 fit and at two ragged ones (one of odd width), for pi
@@ -91,6 +103,10 @@ version (``plain_bcd``).
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last, the
 device line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 result where no CUDA device is visible.
+
+``python3 chip_smoke.py --mesh-only`` runs phases 1, 2, the single-
+process ADHD-70 and HCP-1024 fits and phase mesh alone (on a machine
+with four cards, its legs over NCCL across them), then the device line.
 """
 import contextlib
 import io
@@ -146,6 +162,13 @@ BARRIERS = 2000
 # order; the l1 Newton branches on sums, so agreement is held at a
 # relative 1e-4 of the rows' scale rather than at roundoff
 KERNEL_RTOL = 1e-4
+# mesh fits' components vs the single-process fit's on the same data,
+# relative to max |D| (f32 sums over dp taken in another order); a
+# recsys mesh fit's test RMSE vs the single fit's; a mesh world's time
+# limit
+MESH_RTOL = 1e-4
+MESH_RMSE_TOL = 1e-3
+MESH_TIMEOUT = 300
 # held-out objective of the kernel fit vs the plain-path refit
 # (tests/test_tpu_quality.py pins the Pallas path at the same 1e-2)
 FIT_RTOL = 1e-2
@@ -1184,6 +1207,232 @@ def offload_phase(X, X_test):
     return launches[0]
 
 
+def mesh_rank(rank, world, legs, device):
+    """One rank of a mesh world (``parallel.launch.spawn``): each leg a
+    fit on a mesh of its own shape, every rank with the same data and
+    seed, after a warm-up fit on the leg's first ``warm`` rows (a fresh
+    process' first fit pays for its libraries, allocations and
+    communicators). The kernels' and the collectives' counts are set to
+    0 just before the fit and read just after; the whole components
+    (and a recsys fit's test RMSE) are held against the single-process
+    fit's, saved by the parent. Returns one record a leg."""
+    import scipy.sparse as sp
+    import torch
+    from modl_tpu_torch import DictFact, RecsysDictFact
+    from modl_tpu_torch.ops import bcd, ema_gemm
+    from modl_tpu_torch.parallel import mesh as pmesh
+    out = []
+    for leg in legs:
+        mesh = pmesh.make_mesh(*leg['shape'], device_type=device)
+        if leg['kind'] == 'recsys':
+            X = sp.load_npz(leg['data'])
+            make, init = RecsysDictFact, {}
+        else:
+            X = np.load(leg['data'])
+            # the warm-up's dictionary starts from the same k rows
+            make, init = DictFact, dict(
+                dict_init=X[:leg['kw']['n_components']])
+        make(mesh=mesh, device=device, **leg['kw'], **init).fit(
+            X[:leg['warm']])
+        est = make(mesh=mesh, device=device, **leg['kw'])
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        pmesh.COLLECTIVES.clear()
+        bcd.LAUNCHES = ema_gemm.LAUNCHES = 0
+        t0 = time.perf_counter()
+        est.fit(X)
+        if device == 'cuda':
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rec = dict(name=leg['name'], rank=rank,
+                   launches=(bcd.LAUNCHES, ema_gemm.LAUNCHES),
+                   collectives=dict(pmesh.COLLECTIVES), fit_s=fit_s,
+                   epoch_s=est.time_)
+        D = est.components_
+        ref = np.load(leg['ref'])
+        rec['diff'] = float(np.abs(D - ref).max() / np.abs(ref).max())
+        rec['finite'] = bool(np.isfinite(D).all())
+        if leg['kind'] == 'recsys':
+            rec['rmse'] = est.score(sp.load_npz(leg['test']))
+            rec['rmse_diff'] = abs(rec['rmse'] - leg['rmse'])
+            rec['resident_rows'] = est._resident_rows
+        else:
+            rec['local_D'] = tuple(est._state.D.shape)
+            if est._state.G_avg is not None:
+                rec['local_G_avg'] = tuple(est._state.G_avg.shape)
+        out.append(rec)
+        del est, X
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_legs(results, backend, legs):
+    """Print each leg's line (its ranks' worst numbers) and hold it to its
+    bounds: ``leg['expect']`` is its (BCD, EMA-GEMM) launches per rank
+    and its steps. Returns '<backend>_<leg>' -> launches per rank."""
+    launches = {}
+    for i, leg in enumerate(legs):
+        recs = [r[i] for r in results]
+        name = leg['name']
+        per_rank = {r['launches'] for r in recs}
+        coll = recs[0]['collectives']
+        want, steps = leg['expect'][:2], leg['expect'][2]
+        diff = max(r['diff'] for r in recs)
+        rmse_diff = max(r.get('rmse_diff', 0.0) for r in recs)
+        extra = ({'test_rmse': f'{recs[0]["rmse"]:.6f}',
+                  'rmse_single': f'{leg["rmse"]:.6f}',
+                  'rmse_diff': f'{rmse_diff:.3e}',
+                  'resident_rows_per_rank': recs[0]['resident_rows']}
+                 if leg['kind'] == 'recsys' else
+                 {'local_D': 'x'.join(map(str, recs[0]['local_D']))})
+        if 'local_G_avg' in recs[0]:
+            extra['local_G_avg'] = 'x'.join(map(str,
+                                                recs[0]['local_G_avg']))
+        phase(f'mesh_{backend}', leg=name,
+              mesh='x'.join(map(str, leg['shape'])), backend=backend,
+              ranks=len(recs),
+              epoch_s=f'{max(r["epoch_s"] for r in recs):.4f}',
+              fit_s=f'{max(r["fit_s"] for r in recs):.4f}',
+              collectives_per_step=f'{coll.get("calls", 0) / steps:.1f}',
+              MB_per_step=f'{coll.get("bytes", 0) / steps / 1e6:.2f}',
+              collectives_dp=coll.get('calls_dp', 0),
+              collectives_feat=coll.get('calls_feat', 0),
+              bcd_launches_per_rank=recs[0]['launches'][0],
+              ema_launches_per_rank=recs[0]['launches'][1],
+              expected='/'.join(map(str, want)),
+              max_diff=f'{diff:.3e}', **extra)
+        if per_rank != {want}:
+            raise RuntimeError(f'mesh {name}: launches per rank {per_rank}, '
+                               f'expected {want}')
+        if not diff <= MESH_RTOL or not all(r['finite'] for r in recs):
+            raise RuntimeError(f'mesh {name}: differs from the single-'
+                               f'process fit by {diff:.3e} of max |D| '
+                               f'(bound {MESH_RTOL})')
+        if not rmse_diff <= MESH_RMSE_TOL:
+            raise RuntimeError(f'mesh {name}: test RMSE differs from the '
+                               f'single-process fit by {rmse_diff:.3e} '
+                               f'(bound {MESH_RMSE_TOL})')
+        launches[f'{backend}_{name}'] = recs[0]['launches']
+    return launches
+
+
+def mesh_phase(workdir, adhd, hcp, X_hcp, X_tr, X_te, mesh_only=False):
+    """The dp x feat mesh through torch.distributed (``parallel``): an
+    NCCL world of every visible card (up to four) as (world, 1) on the
+    ADHD-70 fit, then a gloo world of four ranks on card 0 with ADHD-70
+    on (4, 1) and (2, 2), HCP-1024 on (2, 2), ADHD-70 with
+    ``G_agg='average'`` on (4, 1) and the recsys fit on (4, 1), each
+    held against the single-process fit of the same data in this call.
+    ``adhd``/``hcp``: (single-process components, (BCD, EMA-GEMM)
+    launches) of phases 4 and 5; ``workdir`` holds phase 4's data
+    (``adhd_X.npy``). On four cards the NCCL world runs every four-rank
+    leg, and ``mesh_only`` skips the gloo world then. Returns
+    '<backend>_<leg>' -> launches per rank."""
+    import scipy.sparse as sp
+    import torch
+    from modl_tpu_torch import DictFact, RecsysDictFact
+    from modl_tpu_torch.benchmarks.workloads import RECSYS, recsys_batch
+    from modl_tpu_torch.parallel.launch import spawn
+
+    def path(name):
+        return os.path.join(workdir, name)
+
+    X = np.load(path('adhd_X.npy'))
+    np.save(path('adhd_D.npy'), adhd[0])
+    np.save(path('hcp_X.npy'), X_hcp)
+    np.save(path('hcp_D.npy'), hcp[0])
+    avg_kw = dict(ADHD, G_agg='average')
+    single = DictFact(**avg_kw, device='cuda').fit(X)
+    np.save(path('avg_D.npy'), single.components_)
+    avg_cfg = single._cfg
+    del single, X
+    rec_kw = dict(RECSYS, n_epochs=1)
+    single = RecsysDictFact(**rec_kw, device='cuda').fit(X_tr)
+    rmse_single = single.score(X_te)
+    np.save(path('rec_D.npy'), single.components_)
+    del single
+    sp.save_npz(path('rec_tr.npz'), X_tr)
+    sp.save_npz(path('rec_te.npz'), X_te)
+    torch.cuda.empty_cache()
+
+    adhd_steps = ADHD_SAMPLES // ADHD['batch_size']
+    hcp_steps = HCP_SAMPLES // HCP['batch_size']
+    n_batches = -(-X_tr.shape[0] // recsys_batch(X_tr))
+    avg_ema = expected_launches(avg_cfg, ADHD_SAMPLES, ADHD['batch_size'],
+                                1, 1, 1)[1]
+    adhd_expect = (*adhd[1], adhd_steps)
+
+    def leg(name, shape, kw, data, ref, expect):
+        return dict(name=name, kind='dict_fact', shape=shape, kw=kw,
+                    data=path(data), ref=path(ref), expect=expect,
+                    warm=4 * kw['batch_size'])
+
+    four = [leg('adhd70_4x1', (4, 1), ADHD, 'adhd_X.npy', 'adhd_D.npy',
+                adhd_expect),
+            leg('adhd70_2x2', (2, 2), ADHD, 'adhd_X.npy', 'adhd_D.npy',
+                adhd_expect),
+            leg('hcp1024_2x2', (2, 2), HCP, 'hcp_X.npy', 'hcp_D.npy',
+                (*hcp[1], hcp_steps)),
+            leg('adhd70_average_4x1', (4, 1), avg_kw, 'adhd_X.npy',
+                'avg_D.npy', (adhd_steps * bcd_blocks(avg_cfg), avg_ema,
+                              adhd_steps)),
+            dict(name='recsys_4x1', kind='recsys', shape=(4, 1), kw=rec_kw,
+                 data=path('rec_tr.npz'), test=path('rec_te.npz'),
+                 ref=path('rec_D.npy'), rmse=rmse_single, warm=5000,
+                 expect=(n_batches, 0, n_batches))]
+    # NCCL: one rank per card, as many as there are, up to four; on four
+    # cards every four-rank leg, else ADHD-70 on (world, 1)
+    world = min(torch.cuda.device_count(), 4)
+    nccl = four if world == 4 else [
+        leg(f'adhd70_{world}x1', (world, 1), ADHD, 'adhd_X.npy',
+            'adhd_D.npy', adhd_expect)]
+    results = spawn(mesh_rank, world, backend='nccl', device='cuda',
+                    timeout=MESH_TIMEOUT, args=(nccl, 'cuda'))
+    launches = mesh_legs(results, 'nccl', nccl)
+    if mesh_only and world == 4:
+        return launches
+    # gloo: four ranks on card 0, the same program at world size 4
+    results = spawn(mesh_rank, 4, backend='gloo', device='cuda',
+                    timeout=MESH_TIMEOUT, args=(four, 'cuda'))
+    launches.update(mesh_legs(results, 'gloo', four))
+    return launches
+
+
+def mesh_only_main(name):
+    """``--mesh-only``: the single-process ADHD-70 and HCP-1024 fits of
+    phases 4 and 5 (after a warm-up fit each), then phase mesh; on four
+    cards its legs run over NCCL across them."""
+    import torch
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.benchmarks.workloads import recsys_data
+    mesh_dir = os.path.join(REPO, 'build', 'chip_smoke_mesh')
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    os.makedirs(mesh_dir)
+    refs = []
+    try:
+        for kw, X in ((ADHD, adhd_data()[0]),
+                      (HCP, np.random.RandomState(0).randn(
+                          HCP_SAMPLES, N_FEATURES).astype(np.float32))):
+            DictFact(**kw, device='cuda').fit(X)        # warm-up
+            df, _, launches, ema = resident_fit(kw, X, True)
+            refs.append((df.components_, (launches, ema)))
+            phase('mesh_reference', k=kw['n_components'],
+                  epoch_s=f'{df.time_:.4f}', launches=launches,
+                  ema_launches=ema)
+            if kw is ADHD:
+                np.save(os.path.join(mesh_dir, 'adhd_X.npy'), X)
+            del df
+            torch.cuda.empty_cache()
+        mesh_phase(mesh_dir, *refs, X, *recsys_data(), mesh_only=True)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1216,6 +1465,8 @@ def main():
     for line in lib.with_suffix('.log').read_text().splitlines():
         if 'registers' in line or 'spill' in line:
             print('  ptxas: ' + line.strip(), flush=True)
+    if sys.argv[1:] == ['--mesh-only']:
+        return mesh_only_main(name)
 
     # 3. the kernel against its plain version
     results = [kernel_case(bcd, *case, seed=i)
@@ -1281,6 +1532,7 @@ def main():
     if not (rel < FIT_RTOL and rel_off < FIT_RTOL):
         raise RuntimeError(f'kernel and plain fits differ: rel {rel} '
                            f'(plain path), {rel_off} (gate off)')
+    adhd_ref = (df.components_, (launches, ema_on))
     del df, off, plain
 
     # 4b. float64 data on the card; 4c. pickling and checkpoints
@@ -1291,6 +1543,11 @@ def main():
         checkpoint_phase(X, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # phase mesh's ranks read the data from here
+    mesh_dir = os.path.join(REPO, 'build', 'chip_smoke_mesh')
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    os.makedirs(mesh_dir)
+    np.save(os.path.join(mesh_dir, 'adhd_X.npy'), X)
     del X, X_test
 
     # 5. HCP-1024: the block driver
@@ -1319,6 +1576,7 @@ def main():
                            f'{blocks} (block driver)')
     if not bool(torch.isfinite(D).all()):
         raise RuntimeError('HCP-1024 dictionary not finite')
+    hcp_ref = (df.components_, (hcp_launches, ema_on))
     del df, off, D
 
     # 5b. average_offload: G_avg in pinned host RAM at HCP-1024 width
@@ -1326,6 +1584,14 @@ def main():
         X, np.random.RandomState(2).randn(200, N_FEATURES).astype(
             np.float32))
     torch.cuda.empty_cache()
+
+    # 5c. the dp x feat mesh through torch.distributed
+    try:
+        mesh_launches = mesh_phase(mesh_dir, adhd_ref, hcp_ref, X, X_tr,
+                                   X_te)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    del adhd_ref, hcp_ref
 
     # 6. the EMA-GEMM kernel against its plain version
     from modl_tpu_torch.ops.sampler import binomial_len_max
@@ -1357,6 +1623,7 @@ def main():
     del X_tr, X_te
     image_launches = image_phase()
 
+    print(smi, flush=True)          # the card again, near the end
     print(json.dumps({'kernels': [{
         'name': 'bcd_update', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/bcd_update.cu',
@@ -1371,13 +1638,15 @@ def main():
         'ms_image': image_cases[0][1], 'plain_ms_image': image_cases[0][2],
         'bound_ms_image': image_cases[0][3],
         'launches_dtype_policy': dtype_launches,
-        'launches_offload': offload_launches}, {
+        'launches_offload': offload_launches,
+        'launches_mesh': {leg: n[0] for leg, n in mesh_launches.items()}}, {
         'name': 'ema_accumulate', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/ema_gemm.cu',
         'replaces': 'modl_tpu/ops/ema_gemm.py:83',
         'launches': ema_launches, 'max_abs_err': ema_err,
         'ms': ema[0][1], 'plain_ms': ema[0][2], 'bound_ms': ema[0][3],
-        'bound_by': ema[0][4], 'library_ms': ema[0][5]}, {
+        'bound_by': ema[0][4], 'library_ms': ema[0][5],
+        'launches_mesh': {leg: n[1] for leg, n in mesh_launches.items()}}, {
         'name': 'launch_overhead', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/launch_overhead.cu',
         'replaces': 'benchmarks/pallas_call_overhead.py:31',

@@ -6,7 +6,9 @@ here imports JAX: ``state_from_jax`` reads the dictionary that
 ``config_from_jax`` reads the attributes of a ``modl_tpu`` SomfConfig
 and ``masker_from_jax`` those of a fitted ``modl_tpu`` ``NumpyMasker``;
 ``recsys_state_from_jax`` takes the host values of a recsys fit's state.
-Together they let a test start both packages from the same state.
+Together they let a test start both packages from the same state. A JAX
+mesh becomes a port mesh of the same ``('dp', 'feat')`` shape, and
+``parallel.mesh.shard_state`` carries a whole state to a rank's shards.
 """
 import dataclasses
 
@@ -15,6 +17,7 @@ import torch
 
 from .decomposition._step import SomfConfig, state_from_numpy
 from .input_data.fmri.base import NumpyMasker
+from .parallel.mesh import config_for_mesh, make_mesh
 
 __all__ = ["state_from_jax", "config_from_jax", "masker_from_jax",
            "recsys_state_from_jax"]
@@ -36,18 +39,24 @@ def state_from_jax(state_np, device='cpu', dtype=None, seed=0):
     return state_from_numpy(state_np, device, dtype, seed=seed)
 
 
-def config_from_jax(cfg):
+def config_from_jax(cfg, device_type='cuda'):
     """Port-side :class:`SomfConfig` from a JAX ``SomfConfig``.
 
-    ``use_pallas`` becomes ``use_kernel``; a mesh has no counterpart in
-    the port yet and is refused."""
-    if getattr(cfg, 'mesh', None) is not None:
-        raise ValueError('meshes are not ported')
+    ``use_pallas`` becomes ``use_kernel``. A JAX mesh (its ``shape``
+    maps ``'dp'`` and ``'feat'`` to sizes) becomes a port DeviceMesh of
+    the same shape on ``device_type``, made by ``parallel.make_mesh``
+    over the initialised default group (every rank calls this then)."""
     fields = {f.name for f in dataclasses.fields(SomfConfig)}
     values = {name: getattr(cfg, name) for name in fields
-              if name != 'use_kernel'}
+              if name not in ('use_kernel', 'mesh')}
     values['use_kernel'] = bool(cfg.use_pallas)
-    return SomfConfig(**values)
+    port = SomfConfig(**values)
+    if getattr(cfg, 'mesh', None) is not None:
+        shape = dict(cfg.mesh.shape)
+        port = config_for_mesh(port, make_mesh(shape.get('dp', 1),
+                                               shape.get('feat', 1),
+                                               device_type))
+    return port
 
 
 def masker_from_jax(masker):

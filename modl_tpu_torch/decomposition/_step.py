@@ -18,6 +18,15 @@ buffers. Draws (window starts, Binomial sizes, atom orders) are made on
 a host generator ahead of the step, and the batch weight is a host
 float, so a step reads nothing back from the device.
 
+On a mesh (``cfg.mesh``, a state sharded by ``parallel.mesh.
+shard_state``) the same step body runs on every rank over its shards,
+through the collectives of ``_Sharded``: window and subset reads
+reassembled over ``feat``, per-sample rows gathered over ``dp``, this
+rank's batch rows solved and their codes reassembled, the BCD kernel
+launched on the replicated (k, s) block by every rank, and the
+write-back made shard-local. Off the mesh ``_Local`` gives the plain
+indexing.
+
 Only each TPU switch's default branch is ported; the JAX package keeps
 the alternatives. ``comp_pos`` clamps only the atom being updated, as
 in the JAX package (its module docstring explains the deviation from
@@ -39,6 +48,7 @@ from ..ops.sampler import (draw_subset, draw_subset_sized, draw_window,
 from ..ops.solvers import (enet_regression_multi_gram,
                            enet_regression_single_gram)
 from ..ops.weights import batch_weight, sample_weight
+from ..parallel import mesh as pmesh
 
 # rows per block of the plain (use_kernel=False) block-recomputed BCD
 PLAIN_BLOCK = 128
@@ -61,12 +71,14 @@ class SomfState:
     box: torch.Tensor                # (n_features,) sampler box (host)
     cursor: int                      # sampler cursor (host)
     gen: torch.Generator             # host generator: subsets and orders
+    layout: object = None            # parallel.mesh.Layout of a sharded
+                                     # state (None: whole tensors)
 
 
 @dataclass(frozen=True)
 class SomfConfig:
-    """Static solver configuration (``modl_tpu`` ``SomfConfig`` without
-    the mesh field; ``use_kernel`` is ``use_pallas``)."""
+    """Static solver configuration (``modl_tpu``'s ``SomfConfig``;
+    ``use_kernel`` is ``use_pallas``)."""
     n_components: int
     len_subset: int
     reduction: float
@@ -94,6 +106,8 @@ class SomfConfig:
     n_features: int = 0             # logical feature count (windowed)
     average_offload: bool = False   # G_avg in host RAM, exchanged per
                                     # segment (offload_scan)
+    mesh: object = None             # ('dp', 'feat') DeviceMesh of an SPMD
+                                    # fit (pickling drops it)
 
 
 class Draws(NamedTuple):
@@ -129,14 +143,239 @@ def _valid_mask(width, n_valid, dtype, device):
     return (torch.arange(width, device=device) < n_valid).to(dtype)
 
 
-def _solve_code(state, X, sample_indices, w_sample, subset, cfg,
-                n_valid=None):
-    """Codes of the batch under the Dx/G estimators (dict_fact.py:577-648
-    of the reference). Updates ``Dx_avg``/``G_avg`` in place."""
+def _writeback_window(D, V, start, n_log, base=0):
+    """In-place windowed write-back of the window values ``V`` (k, s) at
+    column ``start``, into the columns ``[base, base + D.shape[1])``
+    that ``D`` holds (the whole array, or a ``feat`` shard): the window,
+    the head columns a wrapped window folds into, and the mirror of a
+    window that overlaps the head, so that D[:, n:] == D[:, :s] again
+    (the mirror held the head before). Each is one slice copy of V,
+    clipped to the block; no column is read back."""
+    s = V.shape[1]
+    stop = base + D.shape[1]
+    # (first column, end, column of V[:, 0]): window, wrapped head,
+    # mirror of the head overlap
+    for lo, hi, src in ((start, start + s, start),
+                        (0, start + s - n_log, start - n_log),
+                        (n_log + start, n_log + s, n_log + start)):
+        lo, hi = max(lo, base), min(hi, stop)
+        if lo < hi:
+            D[:, lo - base:hi - base] = V[:, lo - src:hi - src]
+
+
+class _Local:
+    """Batch rows and subset columns of a step on whole tensors: plain
+    indexing and no collective. ``rows`` picks this rank's rows out of
+    full-batch values (all of them here); ``n_stored`` is the width of
+    D and B."""
+    split_cols = False
+    rows = slice(None)
+    agree = None
+
+    def __init__(self, idx, n_stored):
+        self.idx = idx
+        self.n_stored = n_stored
+
+    def visit(self, sample_n_iter):
+        """Count the batch's visits of its samples."""
+        sample_n_iter.index_add_(
+            0, self.idx, torch.ones_like(self.idx,
+                                         dtype=sample_n_iter.dtype))
+
+    def read(self, leaves):
+        """The batch's rows of per-sample leaves, (b, ...) each."""
+        return [leaf[self.idx] for leaf in leaves]
+
+    def write(self, leaf, values):
+        """Write the batch's rows of a per-sample leaf."""
+        leaf[self.idx] = values
+
+    def batch(self, t):
+        """Full-batch values from this rank's rows of them."""
+        return t
+
+    def sum_rows(self, t):
+        """A sum over the batch's rows from this rank's partial sum."""
+        return t
+
+    def sum_feat(self, t):
+        """A sum over the features from this rank's partial sum."""
+        return t
+
+    def col(self, g):
+        """This rank's index of global column ``g`` (clipped)."""
+        return g
+
+    def norms(self, X):
+        """``||x_i||^2`` of the rows of X where its columns are split,
+        else None (the solver takes them from X)."""
+        return None
+
+    def cols(self, A, subset, width, cfg):
+        """The subset's columns of A (D, B or X), whole."""
+        return _subset_cols(A, subset, width, cfg)
+
+    def write_cols(self, D, subset, V, cfg):
+        """Write the subset's new columns V into D."""
+        if cfg.windowed:
+            _writeback_window(D, V, subset, cfg.n_features)
+        else:
+            D[:, subset] = V
+
+    def window_grad(self, B0, SC, Xseg, start, width, pi, cfg):
+        """The gradient window ``pi B0[:, win] + SC^T Xseg[:, win]`` of a
+        deferred-B segment."""
+        return (float(pi) * _subset_cols(B0, start, width, cfg)
+                + SC.T @ _subset_cols(Xseg, start, width, cfg))
+
+    def segment_end(self, B, SC, Xseg, pi, kernel):
+        """``B <- pi B + SC^T Xseg`` in place: the EMA-GEMM kernel
+        (``kernel``) or one ``addmm_``."""
+        if kernel:
+            ema_gemm.ema_accumulate(B, SC, Xseg, pi)
+        else:
+            B.addmm_(SC.T, Xseg, beta=float(pi))
+
+
+class _Sharded(_Local):
+    """The same on a rank's shards (``parallel.mesh``): per-sample rows
+    gathered over ``dp`` and written by their owner; this rank's block
+    of the batch's rows (``rows``), whose codes are reassembled over
+    ``dp`` and whose partial sums are all-reduced there; subset columns
+    reassembled over ``feat`` from the shards and written shard-local.
+    Every collective is a SUM all-reduce."""
+
+    def __init__(self, idx, layout):
+        super().__init__(idx, layout.n_stored)
+        self.lay = layout
+        self.mesh = mesh = layout.mesh
+        b = idx.shape[0]
+        self.split_batch = pmesh.rows_split(mesh, b)
+        r0, nr = pmesh.block(mesh, 'dp', b, self.split_batch)
+        self.rows = slice(r0, r0 + nr)
+        self.split_cols = layout.split_cols
+        self.base, self.width = layout.cols()
+        # the dp rank that adds replicated terms to sums over dp
+        self.lead = pmesh.coord(mesh, 'dp') == 0 or not self.split_batch
+        self.agree = self.sum_rows if self.split_batch else None
+
+    def visit(self, sample_n_iter):
+        if not self.lay.split_rows:
+            return super().visit(sample_n_iter)
+        local, own = pmesh.owned(self.idx, self.mesh, self.lay.n_samples)
+        sample_n_iter.index_add_(0, local, own.to(sample_n_iter.dtype))
+
+    def read(self, leaves):
+        return pmesh.gather_rows(leaves, self.idx, self.mesh,
+                                 self.lay.n_samples, self.lay.split_rows)
+
+    def write(self, leaf, values):
+        pmesh.scatter_rows(leaf, self.idx, values, self.mesh,
+                           self.lay.n_samples, self.lay.split_rows)
+
+    def batch(self, t):
+        if not self.split_batch:
+            return t
+        return pmesh.unshard(t.contiguous(), self.mesh, 'dp', 0,
+                             self.idx.shape[0], True)
+
+    def sum_rows(self, t):
+        if not self.split_batch:
+            return t
+        return pmesh.all_reduce_sum(t, self.mesh, 'dp')
+
+    def sum_feat(self, t):
+        if not self.split_cols:
+            return t
+        return pmesh.all_reduce_sum(t, self.mesh, 'feat')
+
+    def col(self, g):
+        return min(max(g - self.base, 0), self.width)
+
+    def norms(self, X):
+        if not self.split_cols:
+            return None
+        return self.sum_feat(torch.sum(X * X, dim=-1))
+
+    def _window(self, start, width):
+        """``(j0, j1, l0)``: columns [j0, j1) of the window ``[start,
+        start + width)`` are this rank's columns from ``l0`` on."""
+        j0 = min(max(self.base - start, 0), width)
+        j1 = max(min(self.base + self.width - start, width), j0)
+        return j0, j1, start + j0 - self.base
+
+    def _owned(self, subset):
+        local = subset - self.base
+        own = (local >= 0) & (local < self.width)
+        return torch.where(own, local, torch.zeros_like(local)), own
+
+    def cols(self, A, subset, width, cfg):
+        if not self.split_cols:
+            return super().cols(A, subset, width, cfg)
+        if cfg.windowed:
+            j0, j1, l0 = self._window(subset, width)
+            out = A.new_zeros((A.shape[0], width))
+            out[:, j0:j1] = A[:, l0:l0 + j1 - j0]
+            return self.sum_feat(out)
+        local, own = self._owned(subset)
+        return pmesh.assemble_cols(A, torch.where(own, local, -1), width,
+                                   self.mesh)
+
+    def write_cols(self, D, subset, V, cfg):
+        if not self.split_cols:
+            return super().write_cols(D, subset, V, cfg)
+        if cfg.windowed:
+            _writeback_window(D, V, subset, cfg.n_features, self.base)
+        else:
+            pmesh.put_owned(D, 1, *self._owned(subset), V)
+
+    def window_grad(self, B0, SC, Xseg, start, width, pi, cfg):
+        j0, j1, l0 = self._window(start, width)
+        cols = slice(l0, l0 + j1 - j0)
+        part = SC.T @ Xseg[:, cols]
+        if self.lead:
+            part += float(pi) * B0[:, cols]
+        part = self.sum_rows(part)
+        if not self.split_cols:
+            return part
+        out = part.new_zeros((part.shape[0], width))
+        out[:, j0:j1] = part
+        return self.sum_feat(out)
+
+    def segment_end(self, B, SC, Xseg, pi, kernel):
+        # B0 is replicated over dp: only the lead rank's sum carries it
+        if not self.lead:
+            B.zero_()
+            pi = 0.0
+        super().segment_end(B, SC, Xseg, pi, kernel)
+        self.sum_rows(B)
+
+
+def _context(state, cfg, idx):
+    """The step's rows and columns: ``_Sharded`` on a mesh, else
+    ``_Local``."""
+    if cfg.mesh is None:
+        return _Local(idx, state.D.shape[1])
+    if state.layout is None:
+        raise ValueError('the configuration has a mesh but the state is '
+                         'whole: shard it with parallel.mesh.shard_state')
+    return _Sharded(idx, state.layout)
+
+
+def _solve_code(state, X, ctx, w_sample, subset, cfg, n_valid=None):
+    """Codes of this rank's batch rows under the Dx/G estimators
+    (dict_fact.py:577-648 of the reference). ``w_sample`` holds the
+    whole batch's sample weights. Updates ``Dx_avg``/``G_avg`` in
+    place."""
     D = state.D
     width = _width(cfg, subset)
+    rows = ctx.rows
+    want = [name for name, on in (('code', state.code is not None),
+                                  ('Dx_avg', cfg.Dx_agg == 'average'),
+                                  ('G_avg', cfg.G_agg == 'average')) if on]
+    old = dict(zip(want, ctx.read([getattr(state, n) for n in want])))
     if cfg.Dx_agg != 'full' or cfg.G_agg != 'full':
-        D_subset = _subset_cols(D, subset, width, cfg)
+        D_subset = ctx.cols(D, subset, width, cfg)
         if n_valid is not None:
             D_subset = D_subset * _valid_mask(width, n_valid, D.dtype,
                                               D.device)[None, :]
@@ -145,42 +384,45 @@ def _solve_code(state, X, sample_indices, w_sample, subset, cfg,
         Dx = X @ D.T
         if cfg.windowed:
             # the mirror columns [n, n + w) duplicate the head columns
-            n_log = cfg.n_features
-            Dx = Dx - X[:, n_log:] @ D[:, n_log:].T
+            m0 = ctx.col(cfg.n_features)
+            Dx = Dx - X[:, m0:] @ D[:, m0:].T
+        Dx = ctx.sum_feat(Dx)
     else:
-        X_subset = _subset_cols(X, subset, width, cfg)
+        X_subset = ctx.cols(X, subset, width, cfg)
         Dx = (X_subset @ D_subset.T) * cfg.reduction
         if cfg.Dx_agg == 'average':
-            old = state.Dx_avg[sample_indices]
+            prev, w_rows = old['Dx_avg'][rows], w_sample[rows]
             # unvisited rows (exact zeros) take the new estimate whole
-            unvisited = torch.sum(torch.abs(old), dim=-1) == 0
-            w_eff = torch.where(unvisited, torch.ones_like(w_sample),
-                                w_sample)
-            Dx = old * (1.0 - w_eff[:, None]) + Dx * w_eff[:, None]
-            state.Dx_avg[sample_indices] = Dx
+            unvisited = torch.sum(torch.abs(prev), dim=-1) == 0
+            w_eff = torch.where(unvisited, torch.ones_like(w_rows), w_rows)
+            Dx = prev * (1.0 - w_eff[:, None]) + Dx * w_eff[:, None]
+            ctx.write(state.Dx_avg, ctx.batch(Dx))
 
     if cfg.G_agg == 'full':
         G = state.G
     else:
         G = (D_subset @ D_subset.T) * cfg.reduction
         if cfg.G_agg == 'average':
-            old = state.G_avg[sample_indices]
-            unvisited = torch.sum(torch.abs(old), dim=(-2, -1)) == 0
+            # the whole batch's rows: G is replicated, so every rank
+            # computes them and writes those it owns
+            prev = old['G_avg']
+            unvisited = torch.sum(torch.abs(prev), dim=(-2, -1)) == 0
             w_eff = torch.where(unvisited, torch.ones_like(w_sample),
                                 w_sample)
-            G = (old * (1.0 - w_eff[:, None, None])
+            G = (prev * (1.0 - w_eff[:, None, None])
                  + G[None] * w_eff[:, None, None])
-            state.G_avg[sample_indices] = G
+            ctx.write(state.G_avg, G)
+            G = G[rows]
 
-    w0 = (state.code[sample_indices] if state.code is not None
-          else torch.ones_like(Dx))
+    w0 = old['code'][rows] if 'code' in old else torch.ones_like(Dx)
     # the solvers read X only through ||x_i||^2: drop the mirror columns
-    X_solver = X[:, :cfg.n_features] if cfg.windowed else X
+    X_solver = X[:, :ctx.col(cfg.n_features)] if cfg.windowed else X
+    y_norm2 = ctx.norms(X_solver) if cfg.code_l1_ratio != 0 else None
     solve = (enet_regression_multi_gram if cfg.G_agg == 'average'
              else enet_regression_single_gram)
     return solve(w0, G, Dx, X_solver, cfg.code_l1_ratio, cfg.code_alpha,
                  cfg.code_pos, cfg.tol, cfg.max_iter,
-                 solver=cfg.code_solver)
+                 solver=cfg.code_solver, y_norm2=y_norm2, agree=ctx.agree)
 
 
 def _bcd_plain(D_subset, grad_subset, C, comp_norm, order, cfg):
@@ -256,31 +498,23 @@ def bcd_kernel(D_subset, grad_subset, C, comp_norm, order, comp_pos,
                        comp_pos, l1_ratio)
 
 
-def _writeback_window(D, D_subset, start, n_log):
-    """In-place windowed write-back: write the window, fold a wrapped tail
-    into the head, and refresh the mirror so D[:, n:] == D[:, :s]."""
-    s = D_subset.shape[1]
-    D[:, start:start + s] = D_subset
-    wrapped = start + s - n_log
-    if wrapped > 0:
-        D[:, :wrapped] = D[:, n_log:n_log + wrapped]
-    if start < s or wrapped > 0:
-        D[:, n_log:n_log + s] = D[:, :s]
-
-
 def _update_dict(D, G, comp_norm, C, grad_subset, subset, w, order, cfg,
-                 n_features, n_valid=None):
+                 n_features, ctx, n_valid=None):
     """Block coordinate descent on the subset columns (dict_fact.py:650-715
     of the reference). Writes the new columns into ``D`` in place and
     returns ``(G, comp_norm)``.
+
+    On a mesh the (k, s) block is reassembled whole on every rank, which
+    updates it alike (the BCD kernel launched by every rank) and writes
+    back the columns of its shard.
 
     ``n_valid`` (rand_size): columns >= n_valid are zero-masked; zero is a
     fixed point of the update, and the masked columns are restored
     before the write-back."""
     s = _width(cfg, subset)
     dtype = D.dtype
-    D_cols = _subset_cols(D, subset, s, cfg)
-    if cfg.windowed:            # a view of D: copy before D is written
+    D_cols = ctx.cols(D, subset, s, cfg)
+    if cfg.windowed and not ctx.split_cols:   # a view of D: copy first
         D_cols = D_cols.clone(memory_format=torch.contiguous_format)
     if n_valid is not None:
         validf = _valid_mask(s, n_valid, dtype, D.device)[None, :]
@@ -313,15 +547,13 @@ def _update_dict(D, G, comp_norm, C, grad_subset, subset, w, order, cfg,
         G = G + D_subset @ D_subset.T
     if n_valid is not None:
         D_subset = torch.where(validf > 0, D_subset, D_cols)
-    if cfg.windowed:
-        _writeback_window(D, D_subset, subset, cfg.n_features)
-    else:
-        D[:, subset] = D_subset
+    ctx.write_cols(D, subset, D_subset, cfg)
     if cfg.G_agg == 'full' and not incremental_G:
         G = D @ D.T
         if cfg.windowed:
-            Dm = D[:, cfg.n_features:]
+            Dm = D[:, ctx.col(cfg.n_features):]
             G = G - Dm @ Dm.T
+        G = ctx.sum_feat(G)
     return G, comp_norm
 
 
@@ -332,61 +564,66 @@ def somf_step_inner(state: SomfState, X, sample_indices, subset, order,
     the device), Binomial size ``n_valid`` and atom ``order``. Updates
     ``state`` in place and returns it; the sampler fields are untouched.
 
+    On a mesh (``cfg.mesh``; ``state`` sharded) ``X`` is this rank's
+    block of the batch (``parallel.mesh.shard_batch``) and
+    ``sample_indices`` the whole batch's global sample indices.
+
     ``deferred`` = ``(B0, Xseg, SC, pi, trow)`` (windowed fused epochs):
     B's full-width EMA is not applied; the segment's scaled code buffer
-    SC (updated in place) and decay product ``pi`` (host scalar) advance
-    instead, and the gradient window is ``pi B0[:, win] + SC^T
-    Xseg[:, win]``. Returns ``(state, SC, pi)`` then; ``somf_scan``
-    materialises ``B = pi B0 + SC^T Xseg`` at the segment's end.
+    SC (this rank's rows, updated in place) and decay product ``pi``
+    (host scalar) advance instead, and the gradient window is ``pi
+    B0[:, win] + SC^T Xseg[:, win]``. Returns ``(state, SC, pi)`` then;
+    ``somf_scan`` materialises ``B = pi B0 + SC^T Xseg`` at the
+    segment's end.
     """
     dtype = state.D.dtype
     np_dtype = _np_dtype(dtype)
-    b = X.shape[0]
-    n_features = cfg.n_features if cfg.windowed else state.D.shape[1]
+    b = sample_indices.shape[0]
+    ctx = _context(state, cfg, sample_indices)
+    n_features = cfg.n_features if cfg.windowed else ctx.n_stored
 
     # --- step weights ---
     state.n_iter += b
-    state.sample_n_iter.index_add_(
-        0, sample_indices, torch.ones_like(sample_indices,
-                                           dtype=state.sample_n_iter.dtype))
-    w_sample = sample_weight(state.sample_n_iter[sample_indices],
+    ctx.visit(state.sample_n_iter)
+    w_sample = sample_weight(ctx.read([state.sample_n_iter])[0],
                              cfg.sample_learning_rate, dtype)
     w_np = batch_weight(state.n_iter, b, cfg.learning_rate, 0.0, np_dtype)
     decay_np = np_dtype.type(1.0) - w_np
     w, decay = float(w_np), float(decay_np)
 
-    # --- code ---
-    code_batch = _solve_code(state, X, sample_indices, w_sample, subset,
-                             cfg, n_valid=n_valid)
+    # --- code: this rank's rows, then the whole batch's ---
+    code_rows = _solve_code(state, X, ctx, w_sample, subset, cfg,
+                            n_valid=n_valid)
+    code_batch = ctx.batch(code_rows)
     if state.code is not None:
-        state.code[sample_indices] = code_batch
+        ctx.write(state.code, code_batch)
 
     # --- surrogate statistics ---
     CtC = code_batch.T @ code_batch
     if cfg.optimizer == 'variational':
         state.C = state.C * decay + w * CtC / b
         if deferred is None:
-            state.B.mul_(decay).add_(code_batch.T @ X, alpha=w / b)
+            state.B.mul_(decay).add_(ctx.sum_rows(code_rows.T @ X),
+                                     alpha=w / b)
         else:
             B0, Xseg, SC, pi, trow = deferred
+            m = code_rows.shape[0]
             SC.mul_(decay)
-            SC[trow * b:(trow + 1) * b] = (w / b) * code_batch
+            SC[trow * m:(trow + 1) * m] = (w / b) * code_rows
             pi = np_dtype.type(pi * decay_np)
     else:
         state.C = CtC / b
-        state.B = (code_batch.T @ X) / b
+        state.B = ctx.sum_rows(code_rows.T @ X) / b
 
     # --- dictionary update on the subset columns ---
     width = cfg.len_max if cfg.rand_size else cfg.len_subset
     if deferred is None or cfg.optimizer != 'variational':
-        grad_subset = _subset_cols(state.B, subset, width, cfg)
+        grad_subset = ctx.cols(state.B, subset, width, cfg)
     else:
-        Xwin = _subset_cols(Xseg, subset, width, cfg)
-        grad_subset = (float(pi) * _subset_cols(B0, subset, width, cfg)
-                       + SC.T @ Xwin)
+        grad_subset = ctx.window_grad(B0, SC, Xseg, subset, width, pi, cfg)
     state.G, state.comp_norm = _update_dict(
         state.D, state.G, state.comp_norm, state.C, grad_subset, subset, w,
-        order, cfg, n_features, n_valid=n_valid)
+        order, cfg, n_features, ctx, n_valid=n_valid)
     if deferred is None:
         return state
     return state, SC, pi
@@ -457,11 +694,13 @@ def somf_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
               draws: Draws):
     """Fused epoch over stacked minibatches with the given host draws.
 
-    X_batches (T, b, n_stored) and idx_batches (T, b) on the device.
-    Windowed variational configs run deferred-B segments: the same math
-    as T calls of the step, with B's full-width EMA applied once per
-    segment (in place) instead of once per batch."""
-    T, b = X_batches.shape[0], X_batches.shape[1]
+    X_batches (T, b, n_stored) and idx_batches (T, b) on the device (on
+    a mesh, this rank's block of X_batches, ``parallel.mesh.
+    shard_batches``, and the whole of idx_batches). Windowed variational
+    configs run deferred-B segments: the same math as T calls of the
+    step, with B's full-width EMA applied once per segment (in place)
+    instead of once per batch."""
+    T = idx_batches.shape[0]
     device = state.D.device
     orders = draws.orders.to(device, torch.int32)
     subsets = [_to_device(sub, device) for sub in draws.subsets]
@@ -472,12 +711,14 @@ def somf_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
                             orders[t], cfg, n_valid=draws.sizes[t])
         return state
     np_dtype = _np_dtype(state.D.dtype)
+    ctx = _context(state, cfg, idx_batches[0])
+    m = X_batches.shape[1]          # this rank's rows of a batch
     pos = 0
     while pos < T:
         L = min(seg, T - pos)
-        Xseg = X_batches[pos:pos + L].reshape(L * b, -1)
+        Xseg = X_batches[pos:pos + L].reshape(L * m, -1)
         B0 = state.B
-        SC = torch.zeros((L * b, cfg.n_components), dtype=state.D.dtype,
+        SC = torch.zeros((L * m, cfg.n_components), dtype=state.D.dtype,
                          device=device)
         pi = np_dtype.type(1.0)
         for trow in range(L):
@@ -486,15 +727,13 @@ def somf_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
                 state, X_batches[t], idx_batches[t], subsets[t], orders[t],
                 cfg, n_valid=draws.sizes[t],
                 deferred=(B0, Xseg, SC, pi, trow))
-        # one full-width pass materialises the segment's B, in place:
-        # the EMA-GEMM kernel where its gate allows (off by default, as
-        # in the JAX package), else one addmm_
-        if cfg.use_kernel and ema_gemm.supported(
-                cfg.n_components, state.B.shape[1], Xseg.shape[0],
-                state.B.dtype):
-            ema_gemm.ema_accumulate(state.B, SC, Xseg, pi)
-        else:
-            state.B.addmm_(SC.T, Xseg, beta=float(pi))
+        # one full-width pass materialises the segment's B, in place: the
+        # EMA-GEMM kernel where its gate allows (on by default), else one
+        # addmm_; on a mesh each rank's column slab, summed over dp
+        ctx.segment_end(state.B, SC, Xseg, pi, cfg.use_kernel and
+                        ema_gemm.supported(cfg.n_components,
+                                           state.B.shape[1], Xseg.shape[0],
+                                           state.B.dtype))
         pos += L
     return state
 
@@ -578,7 +817,9 @@ def state_to_numpy(state: SomfState):
     ``gen_state`` (uint8) holds the port's generator, so that a port-saved
     state resumes bit for bit; ``key`` is a valid threefry key (uint32[2])
     derived from it, with which the JAX package resumes on its own
-    trajectory."""
+    trajectory. A sharded state is gathered whole first (a collective:
+    every rank calls this)."""
+    state = pmesh.unshard_state(state)
     out = {name: (None if getattr(state, name) is None
                   else getattr(state, name).detach().cpu().numpy())
            for name in _FLOAT_LEAVES}

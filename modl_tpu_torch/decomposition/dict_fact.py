@@ -23,6 +23,14 @@ float32/float64 becomes float32.
 pinned on CUDA, and moves only a segment's rows to the card
 (``_step.offload_scan``; segments of ``OFFLOAD_SEG_BYTES``).
 
+``mesh=`` (a ``('dp', 'feat')`` DeviceMesh from ``parallel.make_mesh``)
+runs the fit SPMD: every rank calls it with the same data and
+``random_state`` and holds its shards (``parallel/mesh.py``); there
+``average_offload`` is off, ``G_avg`` being split over ``dp`` instead.
+The trailing-underscore views, ``transform`` and ``score`` give the
+whole arrays on every rank, and so do pickles and ``save_state``
+(collectives: every rank calls them); a pickle drops the mesh.
+
 ``set_params`` carries the JAX package's mid-run hooks: the Gram
 upgrade, the lazy 'average' allocation and the windowed re-layout
 (``fMRIDictFact`` changes ``reduction`` and ``G_agg`` between epochs).
@@ -40,6 +48,7 @@ from ..base import (BaseEstimator, TransformerMixin, check_array,
                     check_is_fitted, check_random_state, gen_batches)
 from ..ops.enet import enet_scale
 from ..ops.sampler import binomial_len_max, init_sampler_state
+from ..parallel import mesh as pmesh
 from ._step import (SomfConfig, SomfState, compute_code, draw_epoch,
                     host_zeros, objective_value, offload_scan,
                     offload_supported, somf_scan, somf_step,
@@ -94,7 +103,9 @@ class _PickleStateMixin:
     with the generator's state, and comes back with ``G_avg`` in host
     RAM, where the next ``partial_fit`` places it; the tensor attributes
     named in ``_DEVICE_FIELDS`` go as plain arrays; ``_offload_staging``,
-    a transient buffer, is dropped."""
+    a transient buffer, is dropped. A mesh is dropped too (the JAX
+    package's mixin does the same): a sharded state is gathered whole
+    (every rank pickles) and loads as a single-process estimator."""
 
     _DEVICE_FIELDS = ()
 
@@ -106,6 +117,10 @@ class _PickleStateMixin:
             if state.get(name) is not None:
                 state[name] = state[name].cpu().numpy()
         state.pop('_offload_staging', None)
+        if state.get('mesh') is not None:
+            state['mesh'] = None
+        if getattr(state.get('_cfg'), 'mesh', None) is not None:
+            state['_cfg'] = dataclasses.replace(state['_cfg'], mesh=None)
         return state
 
     def __setstate__(self, state):
@@ -188,7 +203,7 @@ class CodingMixin(_PickleStateMixin, TransformerMixin):
 
     def _components_device(self):
         if getattr(self, '_state', None) is not None:
-            D = self._state.D
+            D = pmesh.unshard_leaf(self._state, 'D')
             if getattr(getattr(self, '_cfg', None), 'windowed', False):
                 # stored order -> logical feature order (drops the pad)
                 D = D[:, torch.tensor(self._feat_inv, device=D.device)]
@@ -207,8 +222,9 @@ class DictFact(CodingMixin, BaseEstimator):
             + code_alpha * (code_l1_ratio ||A||_1
                             + (1 - code_l1_ratio)/2 ||A||_2^2)
     touching only ``n_features / reduction`` random feature columns per
-    step. Parameters mirror ``modl_tpu.DictFact`` without ``mesh``;
-    ``device`` places the learner state.
+    step. Parameters mirror ``modl_tpu.DictFact``; ``device`` places the
+    learner state, and ``mesh`` (a ``('dp', 'feat')`` DeviceMesh) shards
+    it over the ranks of an SPMD fit.
     """
 
     def __init__(self,
@@ -237,6 +253,7 @@ class DictFact(CodingMixin, BaseEstimator):
                  rand_size=True,
                  replacement=True,
                  dtype=None,
+                 mesh=None,
                  code_solver='auto',
                  average_offload=False,
                  subset_sampling='auto',
@@ -266,6 +283,7 @@ class DictFact(CodingMixin, BaseEstimator):
         self.rand_size = rand_size
         self.replacement = replacement
         self.dtype = dtype
+        self.mesh = mesh
         self.code_solver = code_solver
         self.average_offload = average_offload
         self.subset_sampling = subset_sampling
@@ -302,7 +320,8 @@ class DictFact(CodingMixin, BaseEstimator):
                     or (want == 'auto'
                         and getattr(self, '_resident_fit', False)))
         windowed = (windowed and len_subset < n_features
-                    and n_features >= 2 * len_max)
+                    and n_features >= 2 * len_max
+                    and self._mesh_holds_windows(n_features, len_max))
         return SomfConfig(
             n_components=int(self.n_components),
             len_subset=len_subset,
@@ -327,7 +346,8 @@ class DictFact(CodingMixin, BaseEstimator):
             code_solver=code_solver,
             windowed=windowed,
             n_features=int(n_features) if windowed else 0,
-            average_offload=bool(self.average_offload),
+            average_offload=self._offloads(),
+            mesh=self.mesh,
         )
 
     def prepare(self, n_samples=None, n_features=None, dtype=None, X=None):
@@ -407,6 +427,7 @@ class DictFact(CodingMixin, BaseEstimator):
         def zeros(*shape):
             return torch.zeros(shape, dtype=tdtype, device=device)
 
+        average = cfg.G_agg == 'average'
         self._state = SomfState(
             D=D.contiguous(),
             C=zeros(k, k),
@@ -416,7 +437,7 @@ class DictFact(CodingMixin, BaseEstimator):
             code=torch.ones((n_samples, k), dtype=tdtype, device=device),
             Dx_avg=zeros(n_samples, k) if cfg.Dx_agg == 'average' else None,
             G_avg=(self._avg_zeros(tdtype, device)
-                   if cfg.G_agg == 'average' else None),
+                   if average and self.mesh is None else None),
             n_iter=0,
             sample_n_iter=torch.zeros(n_samples, dtype=torch.int64,
                                       device=device),
@@ -424,6 +445,16 @@ class DictFact(CodingMixin, BaseEstimator):
             cursor=cursor,
             gen=gen,
         )
+        if self.mesh is not None:
+            # every rank draws alike or the fit is void: compare the
+            # sampler's and the RandomState's states over the mesh
+            pmesh.check_same([pmesh.fingerprint(
+                gen.get_state(), box, self.random_state.get_state()[1])],
+                self.mesh, 'the sampler and random_state')
+            self._state = self._shard(self._state)
+            if average:     # allocated at this rank's rows only
+                self._state.G_avg = self._avg_zeros(
+                    tdtype, device, self._state.layout.rows()[1])
         self.labels_ = np.arange(n_samples)
         if self.verbose:
             self.verbose_iter_ = np.linspace(
@@ -440,35 +471,38 @@ class DictFact(CodingMixin, BaseEstimator):
             raise AttributeError('components_')
         return self._components_device().cpu().numpy()
 
+    def _whole(self, name):
+        """A state leaf as a host array, whole on every rank of a mesh
+        (a collective there); None where the leaf is."""
+        A = pmesh.unshard_leaf(self._state, name)
+        return A.cpu().numpy() if A is not None else None
+
     @property
     def code_(self):
-        return self._state.code.cpu().numpy()
+        return self._whole('code')
 
     @property
     def C_(self):
-        return self._state.C.cpu().numpy()
+        return self._whole('C')
 
     @property
     def B_(self):
-        B = self._state.B
+        B = pmesh.unshard_leaf(self._state, 'B')
         if self._cfg.windowed:
             B = B[:, torch.tensor(self._feat_inv, device=B.device)]
         return B.cpu().numpy()
 
     @property
     def G_(self):
-        G = self._state.G
-        return G.cpu().numpy() if G is not None else None
+        return self._whole('G')
 
     @property
     def Dx_average_(self):
-        A = self._state.Dx_avg
-        return A.cpu().numpy() if A is not None else None
+        return self._whole('Dx_avg')
 
     @property
     def G_average_(self):
-        A = self._state.G_avg      # in host RAM under average_offload
-        return A.cpu().numpy() if A is not None else None
+        return self._whole('G_avg')    # in host RAM under average_offload
 
     @property
     def n_iter_(self):
@@ -476,7 +510,7 @@ class DictFact(CodingMixin, BaseEstimator):
 
     @property
     def sample_n_iter_(self):
-        return self._state.sample_n_iter.cpu().numpy()
+        return self._whole('sample_n_iter')
 
     # ------------------------------------------------------------------ #
     # fitting
@@ -504,18 +538,47 @@ class DictFact(CodingMixin, BaseEstimator):
         return torch.as_tensor(X).to(self._state.D.device,
                                      _torch_dtype(self._dtype))
 
+    def _mesh_holds_windows(self, n_features, width):
+        """Whether every ``feat`` shard of the windowed storage (padded to
+        a ``feat`` multiple) holds a whole window, as the JAX package's
+        gate asks; where not, the fit takes gather subsets."""
+        n_feat = pmesh.size(self.mesh, 'feat')
+        n_stored = (n_features + width
+                    + self._windowed_extra_pad(n_features, width))
+        return n_stored // n_feat >= width
+
+    def _windowed_extra_pad(self, n_features, width):
+        """Zero columns beyond the mirror pad that make windowed storage
+        split evenly over a mesh's ``feat`` axis."""
+        return (-(n_features + width)) % pmesh.size(self.mesh, 'feat')
+
+    def _shard(self, state):
+        """This rank's shards of a whole state (windowed storage padded
+        to a ``feat`` multiple first)."""
+        cfg = self._cfg
+        width = cfg.len_max if cfg.rand_size else cfg.len_subset
+        n_pad = (self._windowed_extra_pad(cfg.n_features, width)
+                 if cfg.windowed else 0)
+        return pmesh.shard_state(state, self.mesh, n_pad=n_pad)
+
     def _ingest_features(self, X_dev):
         """Windowed mode: reorder columns into the fixed feature order and
-        append the mirror pad (the unpermuted copy is released). Identity
-        otherwise."""
+        append the mirror pad (the unpermuted copy is released); on a
+        mesh, then keep this rank's columns (the zero pad of
+        :meth:`_shard` included). Identity otherwise."""
         cfg = self._cfg
-        if not cfg.windowed:
+        if cfg.windowed:
+            width = cfg.len_max if cfg.rand_size else cfg.len_subset
+            if self.subset_sampling != 'window-ordered':
+                X_dev = X_dev[:, torch.tensor(self._feat_perm,
+                                              device=X_dev.device)]
+            X_dev = torch.cat([X_dev, X_dev[:, :width]], dim=1)
+        lay = getattr(self._state, 'layout', None)
+        if lay is None:
             return X_dev
-        width = cfg.len_max if cfg.rand_size else cfg.len_subset
-        if self.subset_sampling != 'window-ordered':
-            X_dev = X_dev[:, torch.tensor(self._feat_perm,
-                                          device=X_dev.device)]
-        return torch.cat([X_dev, X_dev[:, :width]], dim=1)
+        X_dev = torch.nn.functional.pad(
+            X_dev, (0, lay.n_stored - X_dev.shape[1]))
+        return X_dev.narrow(1, *lay.cols()).contiguous()
 
     def partial_fit(self, X, sample_indices=None):
         """Stream rows of X through the learner."""
@@ -585,7 +648,8 @@ class DictFact(CodingMixin, BaseEstimator):
             elif n_full > 0:
                 draws = draw_epoch(self._state, cfg, n_full)
                 self._state = somf_scan(
-                    self._state, X_dev[:n_full * b].reshape(n_full, b, -1),
+                    self._state,
+                    self._rows(X_dev[:n_full * b].reshape(n_full, b, -1)),
                     idx[:n_full * b].reshape(n_full, b), cfg, draws)
             if n_full * b < n:
                 self._step_batch(X_dev[n_full * b:], idx[n_full * b:],
@@ -599,7 +663,15 @@ class DictFact(CodingMixin, BaseEstimator):
         if offload:
             self._offload_segment(X_dev[None], idx[None])
         else:
-            self._state = somf_step(self._state, X_dev, idx, self._cfg)
+            self._state = somf_step(self._state, self._rows(X_dev[None])[0],
+                                    idx, self._cfg)
+
+    def _rows(self, X_batches):
+        """This rank's rows of stacked (T, b, n) batches on a mesh (their
+        columns are this rank's already); the batches off the mesh."""
+        if self.mesh is None:
+            return X_batches
+        return pmesh.shard_batches(X_batches, self.mesh)
 
     def _offload_segment(self, X_batches, idx_batches):
         self._state = offload_scan(
@@ -618,12 +690,18 @@ class DictFact(CodingMixin, BaseEstimator):
             self._offload_staging = buf
         return buf
 
-    def _avg_zeros(self, dtype, device):
-        """Zeroed G_avg: in host RAM under ``average_offload`` (pinned on
-        CUDA, never staged through a device tensor), else on the
-        device."""
-        shape = (self._n_samples, self.n_components, self.n_components)
-        if self.average_offload:
+    def _offloads(self):
+        """Whether G_avg lives in host RAM: ``average_offload``, off a
+        mesh (on a mesh G_avg is split over dp instead)."""
+        return bool(self.average_offload) and self.mesh is None
+
+    def _avg_zeros(self, dtype, device, rows=None):
+        """Zeroed G_avg of ``rows`` rows (default: every sample's): in
+        host RAM under ``average_offload`` (pinned on CUDA, never staged
+        through a device tensor), else on the device."""
+        shape = (self._n_samples if rows is None else rows,
+                 self.n_components, self.n_components)
+        if self._offloads():
             return host_zeros(shape, dtype, device)
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -653,6 +731,10 @@ class DictFact(CodingMixin, BaseEstimator):
         perm = np.random.RandomState(seed).permutation(self._n_samples)
         st = self._state
         perm_dev = torch.as_tensor(perm, device=st.D.device)
+        if st.layout is not None and st.layout.split_rows:
+            self._shuffle_shards(perm_dev)
+            self.labels_ = self.labels_[perm]
+            return perm
         for name in ('code', 'G_avg', 'Dx_avg', 'sample_n_iter'):
             arr = getattr(st, name)
             if arr is None:
@@ -669,14 +751,34 @@ class DictFact(CodingMixin, BaseEstimator):
         self.labels_ = self.labels_[perm]
         return perm
 
+    def _shuffle_shards(self, perm):
+        """Permute the dp-split per-sample leaves: the rows of each rank's
+        new block are gathered over dp in turn, one rank's block at a
+        time, so no rank holds more than its share."""
+        st = self._state
+        names = [name for name in pmesh.SAMPLE_LEAVES
+                 if getattr(st, name) is not None]
+        r0, m = st.layout.rows()
+        for start in range(0, self._n_samples, m):
+            rows = pmesh.gather_rows(
+                [getattr(st, name) for name in names],
+                perm[start:start + m], self.mesh, self._n_samples, True)
+            if start == r0:
+                mine = [r.contiguous() for r in rows]
+        for name, arr in zip(names, mine):
+            setattr(st, name, arr)
+
     def set_params(self, **params):
         """set_params with the JAX package's mid-run hooks: G_agg='full'
         recomputes the Gram, switching an aggregator to 'average' lazily
         allocates its zeroed per-sample state, and the configuration is
         rebuilt (``_migrate_layout`` moves a windowed state to the new
-        window width)."""
+        window width). On a mesh the state is gathered whole for this and
+        sharded again after (collectives: every rank calls it)."""
         G_agg = params.pop('G_agg', None)
         st = getattr(self, '_state', None)
+        if st is not None and st.layout is not None:
+            st = self._state = pmesh.unshard_state(st)
         if G_agg == 'full' and self.G_agg != 'full':
             if st is not None:
                 Dl = st.D
@@ -707,6 +809,8 @@ class DictFact(CodingMixin, BaseEstimator):
             if old_cfg is not None and st is not None:
                 new_cfg = self._migrate_layout(old_cfg, new_cfg)
             self._cfg = new_cfg
+        if st is not None and self.mesh is not None:
+            self._state = self._shard(st)
         return self
 
     def _migrate_layout(self, old_cfg, new_cfg):
@@ -728,7 +832,8 @@ class DictFact(CodingMixin, BaseEstimator):
                      else old_cfg.len_subset)
         new_width = (new_cfg.len_max if new_cfg.rand_size
                      else new_cfg.len_subset)
-        fits = new_cfg.len_subset < n and n >= 2 * new_width
+        fits = (new_cfg.len_subset < n and n >= 2 * new_width
+                and self._mesh_holds_windows(n, new_width))
         if fits and new_width == old_width:
             return dataclasses.replace(new_cfg, windowed=True, n_features=n)
         D_log, B_log = st.D[:, :n], st.B[:, :n]

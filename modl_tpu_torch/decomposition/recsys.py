@@ -26,8 +26,18 @@ The whole matrix is packed once when the padded size fits
 ``RESIDENT_BUDGET`` (batches are then row gathers), else each batch is
 packed at its own width. Row lengths for the widths come from the
 host's copy of ``indptr``, so the epoch loop reads nothing back from
-the device. The JAX package's dp mesh, its windows of 32 batches and
-its alternative B-EMA formulation are not ported.
+the device. The JAX package's windows of 32 batches and its alternative
+B-EMA formulation are not ported.
+
+``mesh=`` (a DeviceMesh with a ``'dp'`` axis, ``parallel.make_mesh``)
+runs the fit SPMD, every rank with the same data and ``random_state``:
+the resident packed rows are split over ``dp`` (each rank packs and
+keeps its block, so resident capacity grows with the mesh), a batch is
+reassembled from the ranks' hits by a SUM all-reduce over ``dp``, each
+rank solves the codes of its block of the batch's rows (the whole batch
+where ``dp`` does not divide it) and the codes are reassembled, and the
+rest of the step (B and C EMAs, the union BCD kernel) runs replicated on
+every rank, as in the JAX package.
 """
 import time
 from math import ceil, log
@@ -41,6 +51,7 @@ from ..ops import bcd
 from ..ops.precision import precise
 from ..ops.solvers import _cholesky
 from ..ops.weights import batch_weight
+from ..parallel import mesh as pmesh
 from ._step import _np_dtype, bcd_kernel
 from .dict_fact import _PickleStateMixin, _resolve_device, _torch_dtype
 
@@ -111,17 +122,62 @@ def _pad_rows(csr, rows, rows_dev, width=None):
             torch.clamp(lens, max=P).to(torch.int32), P)
 
 
-def _pad_all_rows(csr):
+def _pad_all_rows(csr, mesh=None):
     """Every row packed once at one shared power-of-two width, or None
-    when the padded size exceeds ``RESIDENT_BUDGET``."""
+    when the padded size exceeds ``RESIDENT_BUDGET`` (per rank).
+
+    On a mesh the rows are padded to a ``dp`` multiple with empty rows
+    (pad index, zero value, zero length) and this rank packs and keeps
+    its contiguous block of them."""
     n_samples = csr.shape[0]
     P = csr.width()
     itemsize = csr.data.element_size()
-    if n_samples * P * (4 + itemsize) > RESIDENT_BUDGET:
+    n_dp = pmesh.size(mesh, 'dp')
+    n_stored = n_samples + (-n_samples) % n_dp
+    if n_stored * P * (4 + itemsize) > n_dp * RESIDENT_BUDGET:
         return None
-    return _pad_rows(csr, np.arange(n_samples),
-                     torch.arange(n_samples, device=csr.indptr.device),
-                     width=P)
+    r0, m = pmesh.block(mesh, 'dp', n_stored, mesh is not None)
+    rows = np.arange(r0, min(r0 + m, n_samples))
+    idx, val, lens, P = _pad_rows(
+        csr, rows, torch.as_tensor(rows).to(csr.indptr.device), width=P)
+    if len(rows) < m:           # the empty rows past n_samples
+        extra = m - len(rows)
+        idx = torch.cat([idx, idx.new_full((extra, P), csr.shape[1])])
+        val = torch.cat([val, val.new_zeros((extra, P))])
+        lens = torch.cat([lens, lens.new_zeros(extra)])
+    return idx, val, lens, P
+
+
+def _batch_rows(resident, rows, mesh):
+    """A batch's packed rows from the resident ones: a row gather, or on
+    a mesh each rank's hits written into zeros and reassembled by SUM
+    all-reduces over ``dp`` (exact: every row has one owner)."""
+    idx_all, val_all, lens_all = resident[:3]
+    if mesh is None:
+        return idx_all[rows], val_all[rows], lens_all[rows]
+    local, own = pmesh.owned(rows, mesh, pmesh.size(mesh, 'dp')
+                             * idx_all.shape[0])
+    hit = own[:, None]
+    ints = torch.cat([idx_all[local], lens_all[local][:, None]], dim=1)
+    ints = torch.where(hit, ints, torch.zeros_like(ints))
+    val = val_all[local]
+    val = torch.where(hit, val, torch.zeros_like(val))
+    pmesh.all_reduce_sum(ints, mesh, 'dp')
+    pmesh.all_reduce_sum(val, mesh, 'dp')
+    return ints[:, :-1], val, ints[:, -1]
+
+
+def _batch_codes(D, idx, val, lens, alpha, mesh):
+    """The batch's codes: on a mesh whose ``dp`` divides the batch, each
+    rank solves its block of the rows and the codes are reassembled over
+    ``dp``."""
+    b = idx.shape[0]
+    if not pmesh.rows_split(mesh, b):
+        return _masked_ridge_codes(D, idx, val, lens, alpha)
+    code = _masked_ridge_codes(D, pmesh.shard_batch(idx, mesh),
+                               pmesh.shard_batch(val, mesh),
+                               pmesh.shard_indices(lens, mesh), alpha)
+    return pmesh.unshard(code, mesh, 'dp', 0, b, True)
 
 
 @precise
@@ -249,23 +305,24 @@ def _check_csr(X, copy=False):
 class RecsysDictFact(_PickleStateMixin, BaseEstimator):
     """Masked matrix-factorisation estimator for sparse ratings.
 
-    Parameters mirror ``modl_tpu.RecsysDictFact`` without ``mesh``:
-    ``alpha`` (ridge), ``beta`` (bias shrinkage), ``n_components``,
-    ``learning_rate``, ``batch_size`` (None: ceil(1 / sparsity)),
-    ``detrend``, ``crop``. ``device`` places the state (``'cuda'`` by
-    default; asking for CUDA where there is none raises) and ``dtype``
-    is the state's float type (float64 is the counterpart of the JAX
-    package's x64 mode). On CUDA the BCD kernel runs every batch's
-    dictionary update (``use_kernel_``), which takes float32 state only;
-    the CPU runs its plain version. ``time_`` is the epoch loop's wall
-    time, ending in one device synchronisation.
+    Parameters mirror ``modl_tpu.RecsysDictFact``: ``alpha`` (ridge),
+    ``beta`` (bias shrinkage), ``n_components``, ``learning_rate``,
+    ``batch_size`` (None: ceil(1 / sparsity)), ``detrend``, ``crop``,
+    ``mesh`` (a DeviceMesh with a ``'dp'`` axis: the SPMD fit of the
+    module docstring; pickles drop it). ``device`` places the state
+    (``'cuda'`` by default; asking for CUDA where there is none raises)
+    and ``dtype`` is the state's float type (float64 is the counterpart
+    of the JAX package's x64 mode). On CUDA the BCD kernel runs every
+    batch's dictionary update (``use_kernel_``), which takes float32
+    state only; the CPU runs its plain version. ``time_`` is the epoch
+    loop's wall time, ending in one device synchronisation.
     """
 
     def __init__(self, alpha=1.0, beta=.0, n_components=30,
                  learning_rate=1., batch_size=1, dict_init=None,
                  l1_ratio=0, n_epochs=1, random_state=None, verbose=0,
-                 detrend=False, crop=None, callback=None, device='cuda',
-                 dtype=np.float32):
+                 detrend=False, crop=None, callback=None, mesh=None,
+                 device='cuda', dtype=np.float32):
         self.callback = callback
         self.verbose = verbose
         self.random_state = random_state
@@ -279,10 +336,17 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
         self.beta = beta
         self.detrend = detrend
         self.crop = crop
+        self.mesh = mesh
         self.device = device
         self.dtype = dtype
 
     def fit(self, X, y=None):
+        mesh = self.mesh
+        if mesh is not None and 'dp' not in (mesh.mesh_dim_names or ()):
+            raise ValueError(
+                "RecsysDictFact(mesh=...) requires a mesh with a 'dp' axis "
+                f'(got axes {mesh.mesh_dim_names!r}): the resident rows and '
+                'the ridge solves split over dp')
         device = _resolve_device(self.device)
         tdtype = _torch_dtype(self.dtype)
         # the BCD kernel on the card (float32 only), its plain version on
@@ -297,6 +361,9 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
         k = self.n_components
         self._n_features = n_features
         self.random_state = check_random_state(self.random_state)
+        if mesh is not None:
+            pmesh.check_same([pmesh.fingerprint(
+                self.random_state.get_state()[1])], mesh, 'random_state')
 
         if self.detrend:
             self.row_mean_, self.col_mean_ = compute_biases(
@@ -309,8 +376,11 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
         D = torch.as_tensor(D0).to(device, tdtype)
 
         csr = _DeviceCSR(X, device, tdtype)
-        resident = _pad_all_rows(csr)
+        resident = _pad_all_rows(csr, mesh)
         self.resident_width_ = resident[3] if resident is not None else None
+        # rows of the packed block this rank holds (all, off a mesh)
+        self._resident_rows = (resident[0].shape[0] if resident is not None
+                               else None)
         code = self._refit_device(D, csr, resident)
 
         self.feature_freq_ = np.bincount(X.indices, minlength=n_features) \
@@ -359,11 +429,11 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
                     self._callback()
                 rows = perm_dev[batch]
                 if resident is not None:
-                    idx, val, lens = (a[rows] for a in resident[:3])
+                    idx, val, lens = _batch_rows(resident, rows, mesh)
                 else:
                     idx, val, lens, _ = _pad_rows(csr, permutation[batch],
                                                   rows)
-                code_b = _masked_ridge_codes(D, idx, val, lens, alpha)
+                code_b = _batch_codes(D, idx, val, lens, alpha, mesh)
                 code[rows] = code_b
                 D, C, B, comp_norm, feature_n_iter, n_iter = \
                     _recsys_batch_step(D, C, B, comp_norm, feature_n_iter,
@@ -380,9 +450,19 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
 
     def _refit_device(self, D, csr, resident, chunk=2048):
         """All codes on dictionary D, in chunks of ``chunk`` rows at one
-        shared width."""
+        shared width. On a mesh with resident rows each rank solves its
+        block and the codes are reassembled over ``dp``."""
         n_samples = csr.shape[0]
         alpha = float(self.alpha)
+        if resident is not None and self.mesh is not None:
+            m = resident[0].shape[0]
+            out = D.new_empty((m, self.n_components))
+            for batch in gen_batches(m, chunk):
+                out[batch] = _masked_ridge_codes(
+                    D, *(a[batch] for a in resident[:3]), alpha)
+            n_dp = pmesh.size(self.mesh, 'dp')
+            return pmesh.unshard(out, self.mesh, 'dp', 0, n_dp * m,
+                                 True)[:n_samples]
         width = csr.width()
         out = D.new_empty((n_samples, self.n_components))
         for batch in gen_batches(n_samples, chunk):

@@ -130,13 +130,16 @@ def enet_cd_gram(w0, Q, q, y_norm2, l1_reg, l2_reg, positive, max_iter,
 
 
 def fista_gram(w0, Q, q, y_norm2, l1_reg, l2_reg, positive, max_iter,
-               tol):
+               tol, agree=None):
     """Batched FISTA on the Gram formulation.
 
     Solves the problem of :func:`enet_cd_gram`; step 1/L with L the top
     eigenvalue of Q (16 power iterations) plus l2_reg, with 1% margin.
     The gap test runs every 5 iterations; the minimiser agrees with CD
-    up to the solver tolerance (the problem is convex).
+    up to the solver tolerance (the problem is convex). Every row runs
+    until all have converged; where the batch's rows are split over
+    ranks, ``agree`` sums a 0-d count of unconverged rows over them, so
+    that every rank stops where the whole batch would.
     """
     b, k = q.shape
     shared = Q.ndim == 2
@@ -180,36 +183,45 @@ def fista_gram(w0, Q, q, y_norm2, l1_reg, l2_reg, positive, max_iter,
         if it % check_every == 0:
             gap = _duality_gap(w, matvec(w), q, y_norm2, l1_reg, l2_reg,
                                positive)
-            if bool(torch.all(gap < gap_tol)):
+            left = torch.sum(~(gap < gap_tol))
+            if agree is not None:
+                left = agree(left)
+            if int(left) == 0:
                 break
     return w
 
 
 def enet_regression_single_gram(w0, G, Dx, X, l1_ratio, alpha, positive,
-                                tol, max_iter, solver='cd'):
+                                tol, max_iter, solver='cd', y_norm2=None,
+                                agree=None):
     """Shared-Gram dispatcher: ridge when ``l1_ratio == 0``, else CD or
-    FISTA warm-started at ``w0`` with ``y_norm2 = ||x_i||^2``."""
+    FISTA warm-started at ``w0`` with ``y_norm2 = ||x_i||^2`` (from X
+    unless given: a rank holding some of X's columns passes the whole
+    rows' norms). ``agree``: FISTA's stop over a batch split over ranks
+    (:func:`fista_gram`)."""
     if l1_ratio == 0.0:
         return ridge_single_gram(G, Dx, alpha)
     return _enet_dispatch(w0, G, Dx, X, l1_ratio, alpha, positive, tol,
-                          max_iter, solver)
+                          max_iter, solver, y_norm2, agree)
 
 
 def enet_regression_multi_gram(w0, G, Dx, X, l1_ratio, alpha, positive,
-                               tol, max_iter, solver='cd'):
+                               tol, max_iter, solver='cd', y_norm2=None,
+                               agree=None):
     """Per-sample-Gram dispatcher (``G`` is (b, k, k))."""
     if l1_ratio == 0.0:
         return ridge_multi_gram(G, Dx, alpha)
     return _enet_dispatch(w0, G, Dx, X, l1_ratio, alpha, positive, tol,
-                          max_iter, solver)
+                          max_iter, solver, y_norm2, agree)
 
 
 def _enet_dispatch(w0, G, Dx, X, l1_ratio, alpha, positive, tol, max_iter,
-                   solver):
-    y_norm2 = torch.sum(X * X, dim=-1)
+                   solver, y_norm2, agree):
+    if y_norm2 is None:
+        y_norm2 = torch.sum(X * X, dim=-1)
     l1_reg, l2_reg = alpha * l1_ratio, alpha * (1.0 - l1_ratio)
     if solver == 'fista':
         return fista_gram(w0, G, Dx, y_norm2, l1_reg, l2_reg, positive,
-                          20 * max_iter, tol)
+                          20 * max_iter, tol, agree=agree)
     return enet_cd_gram(w0, G, Dx, y_norm2, l1_reg, l2_reg, positive,
                         max_iter, tol)

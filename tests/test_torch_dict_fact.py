@@ -136,7 +136,8 @@ def test_transform_and_score_match_jax(code_l1, with_gram):
 def test_import_does_not_pull_jax():
     code = ("import sys, modl_tpu_torch, modl_tpu_torch.decomposition.fmri, "
             "modl_tpu_torch.decomposition.recsys, "
-            "modl_tpu_torch.decomposition.image; "
+            "modl_tpu_torch.decomposition.image, modl_tpu_torch.parallel, "
+            "modl_tpu_torch.parallel.launch; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'modl_tpu', 'sklearn', 'joblib')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -186,8 +187,9 @@ def test_params_round_trip():
     assert twin.get_params() == params and twin is not df
     df.set_params(reduction=3)
     assert df.reduction == 3
+    assert params['mesh'] is None
     with pytest.raises(ValueError, match='invalid parameter'):
-        df.set_params(mesh=None)
+        df.set_params(no_such_parameter=None)
     coder = Coder(np.eye(3), device='cpu')
     assert clone(coder).get_params()['dictionary'].shape == (3, 3)
     assert repr(coder).startswith('Coder(')

@@ -15,6 +15,7 @@ runs as on the card (``_step.offload_scan``), so these tests cover it:
 - the lazy 'average' allocation of ``set_params`` goes to host memory.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -207,5 +208,8 @@ def test_config_from_jax_takes_offload():
     df.prepare(n_samples=32, X=np.random.RandomState(4).randn(32, 24))
     cfg = dataclasses.replace(df._cfg, average_offload=True)
     assert convert.config_from_jax(cfg).average_offload
-    with pytest.raises(ValueError, match='meshes'):
-        convert.config_from_jax(dataclasses.replace(cfg, mesh=object()))
+    # a JAX mesh maps onto a port mesh of its shape, made over the
+    # initialised process group, which this process has not
+    mesh = types.SimpleNamespace(shape={'dp': 2, 'feat': 1})
+    with pytest.raises(RuntimeError, match='initialised process group'):
+        convert.config_from_jax(dataclasses.replace(cfg, mesh=mesh))

@@ -112,5 +112,6 @@ def test_set_params_before_prepare_only_sets():
     port.set_params(G_agg='full', reduction=3)
     assert port.G_agg == 'full' and port.reduction == 3
     assert not hasattr(port, '_cfg')
+    port.set_params(mesh=None)      # a parameter since meshes are ported
     with pytest.raises(ValueError, match='invalid parameter'):
-        port.set_params(mesh=None)
+        port.set_params(no_such_parameter=None)
