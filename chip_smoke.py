@@ -77,6 +77,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 9. fmri_hcp1024: ``exps/hcp/decompose_hcp.py``'s configuration (k=1024,
    reduction 20, batch 200) on 2 Gaussian records of 1,200 x 200,000,
    2 epochs: the same checks through the BCD block driver;
+   then nifti: ``fMRIDictFact`` (k=70, reduction 12, batch 100, no
+   cleaning, 2 epochs) on records and mask given as NIfTI images on the
+   MNI152 3 mm grid (61 x 73 x 61, a fixed mask of 200,000 voxels; 2
+   records of phase 8's 200 planted frames), through in-process
+   stand-ins for ``nibabel.Nifti1Image``, ``nilearn._utils.check_niimg``
+   and ``nilearn.input_data.MultiNiftiMasker`` (neither package is on
+   the card's machine): held against the ``.npy`` route of the same
+   frames (components within 1e-5 of max |D|, bitwise expected; the same
+   launches: a NIfTI masker knows no voxel order, so both draw gather
+   subsets and end no deferred-B segment), ``_count_voxels``,
+   ``components_img_`` and ``safe_to_filename``, a held-out objective
+   below the initial dictionary's; then the same records as int16 run
+   float32 state through the kernel; samples/s, ``io_time_`` and
+   ``cpu_time_`` of both routes;
 10. recsys_ml10m: ``RecsysDictFact.fit`` on ``bench.py``'s MovieLens-10M
    scale planted ratings (69,878 x 10,677, ~7.45M training entries, k=50,
    batch ceil(1 / sparsity) = 101, 2 epochs): one BCD launch a batch on
@@ -89,7 +103,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    gathered buffer by buffer), one epoch: one BCD launch a step, held-out
    score below the initial dictionary's, agreement with a plain-path refit
    on a 20,000-patch subset, patches/s; then a short NMF fit (20,000
-   patches) with non-negative components and codes.
+   patches) with non-negative components and codes;
+12. drivers: the port's drivers on the card with ``MODL_OUTPUT`` under
+   ``build/``: the HCP pipeline (``exps.hcp.unmask_hcp`` on 2 Gaussian
+   volumes of 61 x 73 x 61 x 400 and the 200,000-voxel mask, then
+   ``exps.hcp.decompose_hcp`` at its defaults, k=1,024: BCD launches =
+   steps x blocks of the block driver, one EMA-GEMM launch a segment
+   end, ``hcp_components.npy`` of (1,024, 200,000), finite); each
+   example of ``modl_tpu_torch.examples`` (``decompose_fmri`` and
+   ``decompose_images`` for one epoch, the latter on its synthetic image
+   as 'face' would download, the others at their defaults: at least one
+   BCD launch a learner step, the final score and seconds); and one run
+   of ``exps.exp_decompose_fmri`` (one epoch) through ``Experiment``.
 
 Phase 3 also holds the kernel at the recsys shape (50 x 10,677, l2 ball,
 D and the gradient masked by a real batch's union of supports), at the
@@ -196,6 +221,20 @@ FMRI_ADHD_FRAMES, FMRI_RECORDS = 200, 2
 FMRI_HCP = dict(method='masked', n_components=1024, reduction=20,
                 batch_size=200, learning_rate=0.92, alpha=1e-4,
                 standardize=False, detrend=False, random_state=0)
+# the NIfTI leg: records and mask as images on the MNI152 3 mm grid, a
+# fixed mask of exactly N_FEATURES voxels, the ADHD-70 leg's planted
+# frames, fMRIDictFact at bench.py's ADHD settings (uncleaned), 2 epochs;
+# components held against the .npy route of the same frames, relative
+# to max |D| (the same float32 rows in the same order: bitwise expected)
+MNI_3MM = (61, 73, 61)
+FMRI_NIFTI = dict(method='masked', n_components=70, reduction=12,
+                  batch_size=100, alpha=3e-4, standardize=False,
+                  detrend=False, random_state=0)
+NIFTI_EPOCHS = 2
+NIFTI_RTOL = 1e-5
+# the HCP driver pipeline's volumes: two of 400 frames (two full batches
+# of 200 a record, so that a deferred-B segment ends in each)
+HCP_DRIVER_VOLUMES, HCP_DRIVER_FRAMES = 2, 400
 # rounds of on, off, off, on fits in the ADHD-70 leg's gate A/B: the
 # kernel's ~1 ms over 6 segment ends sits inside one fit's spread (~32
 # ms +- 1.5); the HCP-1024 leg's ~15 ms stands out in one round
@@ -639,18 +678,24 @@ def check_fmri(label, fd, launches, want, cache_hits, obj, obj_off,
     return rel
 
 
+def adhd_frames(n_records):
+    """bench.py's planted streaming frames: ``n_records`` records of
+    FMRI_ADHD_FRAMES x N_FEATURES, float32 (seed 0)."""
+    rng = np.random.RandomState(0)
+    k = FMRI_ADHD['n_components']
+    V = rng.randn(k, N_FEATURES).astype(np.float32) / 30
+    return [rng.randn(FMRI_ADHD_FRAMES, k).astype(np.float32) @ V
+            + 0.1 * rng.randn(FMRI_ADHD_FRAMES, N_FEATURES).astype(
+                np.float32) for _ in range(n_records)]
+
+
 def fmri_adhd70(workdir):
     """bench.py's streaming fMRI leg at full width, float32 and float16
     records; returns the float32 run's EMA-GEMM launches."""
     from modl_tpu_torch.decomposition.fmri import fMRIDictFact
     from modl_tpu_torch.input_data.fmri import (create_raw_rest_data,
                                                 get_raw_rest_data)
-    rng = np.random.RandomState(0)
-    k = FMRI_ADHD['n_components']
-    V = rng.randn(k, N_FEATURES).astype(np.float32) / 30
-    recs = [rng.randn(FMRI_ADHD_FRAMES, k).astype(np.float32) @ V
-            + 0.1 * rng.randn(FMRI_ADHD_FRAMES, N_FEATURES).astype(
-                np.float32) for _ in range(FMRI_RECORDS + 1)]
+    recs = adhd_frames(FMRI_RECORDS + 1)
     pageable, pinned = h2d_rates(recs[0])
     mask = np.ones((N_FEATURES, 1, 1), bool)
     n_samples = FMRI_RECORDS * FMRI_ADHD_FRAMES
@@ -756,6 +801,237 @@ def fmri_hcp1024(workdir, X0):
               f'{n / off.dict_fact_.time_:.1f}'),
           **ab, io_s=f'{fd.io_time_:.4f}', cpu_s=f'{fd.cpu_time_:.4f}')
     shutil.rmtree(d, ignore_errors=True)
+
+
+def mni_mask():
+    """A fixed mask of N_FEATURES voxels on the MNI152 3 mm grid: the
+    voxels nearest its centre in the grid's scaled distance (an
+    ellipsoid; ties in C order)."""
+    grid = np.indices(MNI_3MM, dtype=np.float64)
+    centre = (np.array(MNI_3MM) - 1) / 2
+    dist = sum(((g - c) / n) ** 2 for g, c, n in zip(grid, centre, MNI_3MM))
+    mask = np.zeros(int(np.prod(MNI_3MM)), bool)
+    mask[np.argsort(dist.ravel(), kind='stable')[:N_FEATURES]] = True
+    return mask.reshape(MNI_3MM)
+
+
+@contextlib.contextmanager
+def nifti_standins():
+    """In-process stand-ins, on numpy, for the surface of nibabel and
+    nilearn that the port's NIfTI branches touch (the card's machine has
+    neither package): ``nibabel.Nifti1Image``,
+    ``nilearn._utils.check_niimg`` and
+    ``nilearn.input_data.MultiNiftiMasker`` (mask in C order, no
+    cleaning; float32 images give float32 rows, others float64, as
+    nilearn hands back floats). The port's ``HAS_NILEARN`` is set and its
+    ``MultiNiftiMasker`` left to be imported at first use; the modules
+    and flags are restored after."""
+    import types
+
+    from modl_tpu_torch.base import BaseEstimator
+    from modl_tpu_torch.input_data.fmri import base
+
+    class Nifti1Image:
+        def __init__(self, dataobj, affine, header=None):
+            self.dataobj = dataobj
+            self.affine = affine
+            self.header = dict(header or {})
+
+        @property
+        def shape(self):
+            return self.dataobj.shape
+
+        def get_data_dtype(self):
+            return self.dataobj.dtype
+
+        def to_filename(self, filename):
+            self.header['vox_offset'] = 352.0    # nibabel may update it
+            with open(filename, 'wb') as f:
+                np.save(f, np.asarray(self.dataobj))
+
+    def check_niimg(img):
+        if isinstance(img, Nifti1Image):
+            return img
+        return Nifti1Image(np.load(img, mmap_mode='r'), np.eye(4))
+
+    class MultiNiftiMasker(BaseEstimator):
+        def __init__(self, mask_img=None, smoothing_fwhm=None,
+                     standardize=False, detrend=False, low_pass=None,
+                     high_pass=None, t_r=None, target_affine=None,
+                     target_shape=None, mask_strategy='background',
+                     mask_args=None, memory=None, memory_level=1, n_jobs=1,
+                     verbose=0):
+            for name, value in list(locals().items()):
+                if name != 'self':
+                    setattr(self, name, value)
+
+        def fit(self, imgs=None, y=None):
+            self.mask_img_ = check_niimg(self.mask_img)
+            self._mask = np.asarray(self.mask_img_.dataobj) != 0
+            return self
+
+        def transform_single_imgs(self, imgs, confounds=None):
+            if self.standardize or self.detrend or confounds is not None:
+                raise NotImplementedError('the stand-in masker does not '
+                                          'clean')
+            out = np.asarray(check_niimg(imgs).dataobj)[self._mask].T
+            return np.ascontiguousarray(
+                out, np.float32 if out.dtype == np.float32 else np.float64)
+
+        def transform(self, imgs, confounds=None):
+            if isinstance(imgs, (list, tuple)):
+                return [self.transform_single_imgs(img) for img in imgs]
+            return self.transform_single_imgs(imgs, confounds)
+
+        def inverse_transform(self, X):
+            if not isinstance(X, np.ndarray):
+                raise TypeError(f'inverse_transform got {type(X)}')
+            vol = np.zeros(self._mask.shape + (X.shape[0],), X.dtype)
+            vol[self._mask] = X.T
+            return Nifti1Image(vol, self.mask_img_.affine)
+
+    nibabel = types.ModuleType('nibabel')
+    nibabel.Nifti1Image = Nifti1Image
+    nilearn = types.ModuleType('nilearn')
+    nilearn._utils = types.ModuleType('nilearn._utils')
+    nilearn._utils.check_niimg = check_niimg
+    nilearn.input_data = types.ModuleType('nilearn.input_data')
+    nilearn.input_data.MultiNiftiMasker = MultiNiftiMasker
+    modules = {'nibabel': nibabel, 'nilearn': nilearn,
+               'nilearn._utils': nilearn._utils,
+               'nilearn.input_data': nilearn.input_data}
+    saved = ({name: sys.modules.get(name) for name in modules},
+             base.HAS_NILEARN, base.MultiNiftiMasker)
+    sys.modules.update(modules)
+    base.HAS_NILEARN, base.MultiNiftiMasker = True, None
+    try:
+        yield types.SimpleNamespace(Nifti1Image=Nifti1Image,
+                                    MultiNiftiMasker=MultiNiftiMasker)
+    finally:
+        for name, module in saved[0].items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+        base.HAS_NILEARN, base.MultiNiftiMasker = saved[1:]
+
+
+def streaming_rate(fd):
+    """Samples/s of a streaming fit's epochs (io_time_ + cpu_time_)."""
+    return fd.dict_fact_.n_iter_ / (fd.io_time_ + fd.cpu_time_)
+
+
+def nifti_phase(workdir):
+    """fMRIDictFact on records and mask given as NIfTI images (stand-ins)
+    on the MNI152 3 mm grid, against the .npy route of the same frames;
+    then the same records as int16. Returns the BCD and EMA-GEMM launches
+    of the float32 NIfTI fit."""
+    from modl_tpu_torch.decomposition.fmri import fMRIDictFact
+    from modl_tpu_torch.input_data.fmri import (create_raw_rest_data,
+                                                get_raw_rest_data,
+                                                safe_to_filename)
+    mask = mni_mask()
+    vols = []
+    for rec in adhd_frames(FMRI_RECORDS + 1):
+        vol = np.zeros(MNI_3MM + (FMRI_ADHD_FRAMES,), np.float32)
+        vol[mask] = rec.T
+        vols.append(vol)
+    # the control: the same frames through create_raw_rest_data (no voxel
+    # order, as a NIfTI masker has none: both fits draw gather subsets)
+    d = os.path.join(workdir, 'nifti_control')
+    create_raw_rest_data(vols[:FMRI_RECORDS], mask, d, standardize=False,
+                         detrend=False)
+    masker, records = get_raw_rest_data(d)
+    ctl, ctl_s, *ctl_launches = fmri_fit(records, masker, FMRI_NIFTI,
+                                         NIFTI_EPOCHS, True)
+    k = FMRI_NIFTI['n_components']
+    with nifti_standins() as ni:
+        affine = np.diag([-3.0, 3.0, 3.0, 1.0])
+        mask_img = ni.Nifti1Image(mask.astype(np.uint8), affine)
+        imgs = [ni.Nifti1Image(v, affine) for v in vols]
+        train, test = imgs[:FMRI_RECORDS], imgs[FMRI_RECORDS:]
+        fd, seconds, *launches = fmri_fit(train, mask_img, FMRI_NIFTI,
+                                          NIFTI_EPOCHS, True)
+        cfg = fd.dict_fact_._cfg
+        want = expected_launches(cfg, FMRI_ADHD_FRAMES,
+                                 FMRI_NIFTI['batch_size'], FMRI_RECORDS,
+                                 NIFTI_EPOCHS, bcd_blocks(cfg))
+        D, D_ctl = fd.components_, ctl.components_
+        rel = float(np.abs(D - D_ctl).max() / np.abs(D_ctl).max())
+        n_voxels = fMRIDictFact._count_voxels(fd.masker_)
+        img = fd.components_img_
+        vol = np.asarray(img.dataobj)
+        img_ok = (vol.shape == MNI_3MM + (k,)
+                  and np.array_equal(vol[mask], D.T))
+        header = dict(img.header)
+        path = os.path.join(workdir, 'components.nii')
+        safe_to_filename(img, path)
+        saved_ok = img.header == header and np.array_equal(np.load(path),
+                                                           vol)
+        obj = fd.score(test)
+        obj0 = fMRIDictFact(mask=mask_img, n_epochs=0, device='cuda',
+                            **FMRI_NIFTI).fit(train).score(test)
+        # scanner-style int16 records of the same frames
+        imgs16 = [ni.Nifti1Image(np.round(v * 1000).astype(np.int16),
+                                 affine) for v in vols]
+        del vols, imgs
+        init16 = fMRIDictFact(mask=mask_img, n_epochs=0, device='cuda',
+                              **FMRI_NIFTI).fit(imgs16[:FMRI_RECORDS])
+        obj0_16 = init16.score(imgs16[FMRI_RECORDS:])
+        fd16, seconds16, *launches16 = fmri_fit(
+            imgs16[:FMRI_RECORDS], mask_img, FMRI_NIFTI, NIFTI_EPOCHS, True)
+        obj16 = fd16.score(imgs16[FMRI_RECORDS:])
+        state16 = str(fd16.dict_fact_._state.D.dtype)
+        masker_class = type(fd.masker_)
+    n = FMRI_RECORDS * FMRI_ADHD_FRAMES
+    phase('nifti', standins='nibabel.Nifti1Image,nilearn._utils.'
+          'check_niimg,nilearn.input_data.MultiNiftiMasker',
+          grid='x'.join(map(str, MNI_3MM)), voxels=n_voxels,
+          masker=masker_class.__name__, windowed=cfg.windowed,
+          bcd_launches=launches[0], ema_launches=launches[1],
+          bcd_launches_npy=ctl_launches[0], ema_launches_npy=ctl_launches[1],
+          steps=want[0], rel_diff_npy=f'{rel:.3e}',
+          bitwise_npy=bool(np.array_equal(D, D_ctl)),
+          components_img=img_ok, safe_to_filename_unchanged=saved_ok,
+          objective=f'{obj:.6g}', objective_init=f'{obj0:.6g}',
+          epoch_samples_per_s=f'{streaming_rate(fd):.1f}',
+          epoch_samples_per_s_npy=(
+              f'{streaming_rate(ctl):.1f}'),
+          fit_samples_per_s=f'{NIFTI_EPOCHS * n / seconds:.1f}',
+          fit_samples_per_s_npy=f'{NIFTI_EPOCHS * n / ctl_s:.1f}',
+          io_s=f'{fd.io_time_:.4f}', cpu_s=f'{fd.cpu_time_:.4f}',
+          io_s_npy=f'{ctl.io_time_:.4f}', cpu_s_npy=f'{ctl.cpu_time_:.4f}',
+          int16_state=state16, int16_bcd_launches=launches16[0],
+          int16_objective=f'{obj16:.6g}',
+          int16_objective_init=f'{obj0_16:.6g}',
+          int16_epoch_samples_per_s=(
+              f'{streaming_rate(fd16):.1f}'),
+          int16_io_s=f'{fd16.io_time_:.4f}',
+          int16_cpu_s=f'{fd16.cpu_time_:.4f}')
+    if masker_class.__name__ != 'MultiNiftiMasker':
+        raise RuntimeError(f'nifti: the fit took a {masker_class} masker')
+    if not rel <= NIFTI_RTOL:
+        raise RuntimeError(f'nifti: components differ from the .npy '
+                           f'route by {rel} of max |D|')
+    if tuple(launches) != tuple(ctl_launches) or launches[0] != want[0] \
+            or tuple(launches16) != tuple(launches):
+        raise RuntimeError(f'nifti: launched {launches} (int16 '
+                           f'{launches16}), the .npy route {ctl_launches}, '
+                           f'expected {want[0]} BCD launches')
+    if n_voxels != N_FEATURES:
+        raise RuntimeError(f'nifti: counted {n_voxels} voxels')
+    if not (img_ok and saved_ok):
+        raise RuntimeError(f'nifti: components_img_ {img_ok}, '
+                           f'safe_to_filename {saved_ok}')
+    if not (math.isfinite(obj) and obj < obj0):
+        raise RuntimeError(f'nifti: held-out objective {obj} not below the '
+                           f'initial {obj0}')
+    if state16 != 'torch.float32' or not (math.isfinite(obj16)
+                                          and obj16 < obj0_16):
+        raise RuntimeError(f'nifti: int16 records ran {state16} state, '
+                           f'objective {obj16} (initial {obj0_16})')
+    shutil.rmtree(d, ignore_errors=True)
+    return tuple(launches)
 
 
 def recsys_union(X):
@@ -926,6 +1202,172 @@ def image_phase():
                            'non-negative and finite')
     if not bool(torch.isfinite(est.dict_fact_._state.D).all()):
         raise RuntimeError('image: dictionary not finite')
+    return launches
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Environment variables set (None: unset) for the block."""
+    saved = {name: os.environ.get(name) for name in values}
+    try:
+        for name, value in values.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+@contextlib.contextmanager
+def counting_steps():
+    """Counts the learner steps the block runs: ceil(n / batch) a
+    ``DictFact._partial_fit_ingested`` call, one a recsys batch
+    (``_recsys_batch_step``). Yields the dict that holds the count."""
+    from modl_tpu_torch.decomposition import dict_fact, recsys
+    count = {'steps': 0}
+    ingested = dict_fact.DictFact._partial_fit_ingested
+    batch_step = recsys._recsys_batch_step
+
+    def counted_ingested(self, X_dev, sample_indices):
+        n = X_dev.shape[0]
+        count['steps'] += -(-n // min(self.batch_size, n)) if n else 0
+        return ingested(self, X_dev, sample_indices)
+
+    def counted_batch_step(*args, **kwargs):
+        count['steps'] += 1
+        return batch_step(*args, **kwargs)
+
+    dict_fact.DictFact._partial_fit_ingested = counted_ingested
+    recsys._recsys_batch_step = counted_batch_step
+    try:
+        yield count
+    finally:
+        dict_fact.DictFact._partial_fit_ingested = ingested
+        recsys._recsys_batch_step = batch_step
+
+
+def driven(fn, count, **kwargs):
+    """``fn(**kwargs)`` with its printing kept: (result, printed text,
+    seconds, BCD launches, EMA-GEMM launches, steps), the counts set to
+    0 just before."""
+    import torch
+    from modl_tpu_torch.ops import bcd, ema_gemm
+    out = io.StringIO()
+    bcd.LAUNCHES = ema_gemm.LAUNCHES = count['steps'] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn(**kwargs)
+    torch.cuda.synchronize()
+    return (result, out.getvalue(), time.perf_counter() - t0,
+            bcd.LAUNCHES, ema_gemm.LAUNCHES, count['steps'])
+
+
+def final_score(name, result, text):
+    """The final score an example reports: its last test objective or
+    test RMSE, or the stability examples' lowest mean discrepancy."""
+    import re
+    if isinstance(result, dict):
+        return min(mean for mean, _ in result.values())
+    pattern = {'predict_recsys': r'test RMSE ([-+.\deE]+)'}.get(
+        name, r'final test objective:? ([-+.\deE]+)')
+    return float(re.findall(pattern, text)[-1])
+
+
+def drivers_phase(workdir):
+    """The port's drivers on the card: the HCP pipeline at its own
+    k=1,024 on 200,000 voxels, every example and one run of
+    exp_decompose_fmri. Returns their BCD and EMA-GEMM launches."""
+    from modl_tpu_torch.examples import (decompose_fmri,
+                                         decompose_fmri_stability,
+                                         decompose_images, predict_recsys,
+                                         stability_selection)
+    from modl_tpu_torch.exps import exp_decompose_fmri
+    from modl_tpu_torch.exps.hcp import decompose_hcp, unmask_hcp
+    out = os.path.join(workdir, 'out')
+    src = os.path.join(workdir, 'hcp_volumes')
+    os.makedirs(src)
+    np.save(os.path.join(src, 'mask.npy'), mni_mask())
+    rng = np.random.default_rng(0)
+    for i in range(HCP_DRIVER_VOLUMES):
+        np.save(os.path.join(src, f'subject_{i}.npy'), rng.standard_normal(
+            MNI_3MM + (HCP_DRIVER_FRAMES,), dtype=np.float32))
+    launches = {}
+    with environ(MODL_OUTPUT=out, MODL_DATA=os.path.join(workdir, 'data'),
+                 MODL_SHARED_DATA=None), counting_steps() as count:
+        # 1. the HCP pipeline: unmask on the host, then decompose_hcp at
+        # its defaults
+        manifest, _, unmask_s, *_ = driven(unmask_hcp.main, count,
+                                           source_dir=src)
+        with open(manifest) as f:
+            n_records = len(json.load(f)['records'])
+        fd, _, seconds, bcd_n, ema_n, steps = driven(decompose_hcp.main,
+                                                     count)
+        cfg = fd.dict_fact_._cfg
+        blocks = bcd_blocks(cfg)
+        want = expected_launches(cfg, HCP_DRIVER_FRAMES, fd.batch_size,
+                                 n_records, fd.n_epochs, blocks)
+        comps = np.load(os.path.join(out, 'hcp_components.npy'))
+        phase('drivers', driver='exps.hcp', records=n_records,
+              k=cfg.n_components, voxels=comps.shape[1],
+              windowed=cfg.windowed, blocks_per_step=blocks,
+              steps=steps, bcd_launches=bcd_n, ema_launches=ema_n,
+              segment_ends=want[1], unmask_s=f'{unmask_s:.2f}',
+              decompose_s=f'{seconds:.2f}',
+              epoch_samples_per_s=f'{streaming_rate(fd):.1f}',
+              io_s=f'{fd.io_time_:.4f}', cpu_s=f'{fd.cpu_time_:.4f}')
+        if (bcd_n, ema_n) != want or blocks < 2 or ema_n < 1 \
+                or steps * blocks != bcd_n:
+            raise RuntimeError(f'drivers: decompose_hcp launched {bcd_n} '
+                               f'BCD and {ema_n} EMA-GEMM kernels over '
+                               f'{steps} steps, expected {want} '
+                               f'({blocks} blocks a step)')
+        if comps.shape != (cfg.n_components, N_FEATURES) \
+                or not np.isfinite(comps).all():
+            raise RuntimeError(f'drivers: hcp_components.npy {comps.shape}'
+                               ' not finite or not (1024, 200000)')
+        launches['hcp'] = (bcd_n, ema_n)
+        del fd, comps
+        shutil.rmtree(src, ignore_errors=True)
+        # 2. the examples ('lisboa' is not under MODL_DATA: the image
+        # example takes its synthetic image; 'face' would download)
+        for name, fn, kw in (
+                ('decompose_fmri', decompose_fmri.main, dict(n_epochs=1)),
+                ('decompose_fmri_stability', decompose_fmri_stability.main,
+                 {}),
+                ('decompose_images', decompose_images.main,
+                 dict(n_epochs=1, source='lisboa')),
+                ('predict_recsys', predict_recsys.main, {}),
+                ('stability_selection', stability_selection.main, {})):
+            result, text, seconds, bcd_n, ema_n, steps = driven(fn, count,
+                                                                **kw)
+            score = final_score(name, result, text)
+            phase('drivers', driver=f'examples.{name}', steps=steps,
+                  bcd_launches=bcd_n, ema_launches=ema_n,
+                  score=f'{score:.6g}', seconds=f'{seconds:.2f}')
+            if not (steps > 0 and bcd_n >= steps and math.isfinite(score)):
+                raise RuntimeError(f'drivers: {name} launched {bcd_n} BCD '
+                                   f'kernels over {steps} steps, score '
+                                   f'{score}')
+            launches[name] = (bcd_n, ema_n)
+        # 3. one run of the fMRI experiment
+        run, _, seconds, bcd_n, ema_n, steps = driven(
+            exp_decompose_fmri.run, count, n_epochs=1)
+        score = run.info['final_score']
+        phase('drivers', driver='exps.exp_decompose_fmri', steps=steps,
+              bcd_launches=bcd_n, ema_launches=ema_n, score=f'{score:.6g}',
+              seconds=f'{seconds:.2f}',
+              run_dir=os.path.relpath(run.dir, REPO))
+        if not (steps > 0 and bcd_n >= steps and math.isfinite(score)):
+            raise RuntimeError(f'drivers: exp_decompose_fmri launched '
+                               f'{bcd_n} BCD kernels over {steps} steps, '
+                               f'score {score}')
+        launches['exp_decompose_fmri'] = (bcd_n, ema_n)
     return launches
 
 
@@ -1614,14 +2056,24 @@ def main():
     try:
         ema_launches = fmri_adhd70(workdir)
         fmri_hcp1024(workdir, X)
+        del X
+        # 9b. the same fit on records and mask given as NIfTI images
+        nifti_launches = nifti_phase(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del X
 
     # 10-11. the recsys and image fits
     recsys_launches = recsys_ml10m(X_tr, X_te)
     del X_tr, X_te
     image_launches = image_phase()
+
+    # 12. the drivers: the HCP pipeline, the examples, an experiment
+    workdir = os.path.join(REPO, 'build', 'chip_smoke_drivers')
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        driver_launches = drivers_phase(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     print(smi, flush=True)          # the card again, near the end
     print(json.dumps({'kernels': [{
@@ -1639,14 +2091,20 @@ def main():
         'bound_ms_image': image_cases[0][3],
         'launches_dtype_policy': dtype_launches,
         'launches_offload': offload_launches,
-        'launches_mesh': {leg: n[0] for leg, n in mesh_launches.items()}}, {
+        'launches_mesh': {leg: n[0] for leg, n in mesh_launches.items()},
+        'launches_nifti': nifti_launches[0],
+        'launches_drivers': {leg: n[0]
+                             for leg, n in driver_launches.items()}}, {
         'name': 'ema_accumulate', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/ema_gemm.cu',
         'replaces': 'modl_tpu/ops/ema_gemm.py:83',
         'launches': ema_launches, 'max_abs_err': ema_err,
         'ms': ema[0][1], 'plain_ms': ema[0][2], 'bound_ms': ema[0][3],
         'bound_by': ema[0][4], 'library_ms': ema[0][5],
-        'launches_mesh': {leg: n[1] for leg, n in mesh_launches.items()}}, {
+        'launches_mesh': {leg: n[1] for leg, n in mesh_launches.items()},
+        'launches_nifti': nifti_launches[1],
+        'launches_drivers': {leg: n[1]
+                             for leg, n in driver_launches.items()}}, {
         'name': 'launch_overhead', 'route': 'cuda',
         'source': 'modl_tpu_torch/csrc/launch_overhead.cu',
         'replaces': 'benchmarks/pallas_call_overhead.py:31',

@@ -4,14 +4,14 @@ The GPU machines the port runs on carry PyTorch, numpy and scipy but not
 scikit-learn, so the few pieces of it that ``modl_tpu`` uses are written
 out here with the same behaviour: parameter introspection
 (``get_params``/``set_params``, so ``sklearn.base.clone`` works where
-scikit-learn is installed), ``fit_transform``, input validation and
-batch slicing.
+scikit-learn is installed), ``fit_transform``, input validation, batch
+slicing and ``Bunch``.
 """
 import inspect
 
 import numpy as np
 
-__all__ = ["BaseEstimator", "TransformerMixin", "check_array",
+__all__ = ["BaseEstimator", "TransformerMixin", "Bunch", "check_array",
            "check_random_state", "check_is_fitted", "gen_batches"]
 
 
@@ -41,6 +41,25 @@ class BaseEstimator:
     def __repr__(self):
         args = ', '.join(f'{k}={v!r}' for k, v in self.get_params().items())
         return f'{type(self).__name__}({args})'
+
+
+class Bunch(dict):
+    """A dict whose keys are also attributes (``sklearn.utils.Bunch``)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(kwargs)
+
+    def __getattr__(self, key):
+        try:
+            return self[key]
+        except KeyError:
+            raise AttributeError(key) from None
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def __dir__(self):
+        return list(self.keys())
 
 
 class TransformerMixin:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .decomposition._step import SomfConfig, state_from_numpy
+from .decomposition.dict_fact import _resolve_device
 from .input_data.fmri.base import NumpyMasker
 from .parallel.mesh import config_for_mesh, make_mesh
 
@@ -23,11 +24,12 @@ __all__ = ["state_from_jax", "config_from_jax", "masker_from_jax",
            "recsys_state_from_jax"]
 
 
-def state_from_jax(state_np, device='cpu', dtype=None, seed=0):
+def state_from_jax(state_np, device='cuda', dtype=None, seed=0):
     """Port-side :class:`SomfState` from a JAX ``SomfState`` on the host.
 
     ``state_np`` maps field names to numpy arrays (or None). Float leaves
-    go to ``device`` in ``dtype`` (default: the dictionary's dtype),
+    go to ``device`` (the card unless the caller asks for the CPU; raises
+    where there is none) in ``dtype`` (default: the dictionary's dtype),
     ``G_avg`` to host RAM, where an estimator's next ``partial_fit``
     places it (``_step.state_from_numpy``); the sampler's ``box`` stays
     on the host and ``cursor``/``n_iter`` become
@@ -36,7 +38,8 @@ def state_from_jax(state_np, device='cpu', dtype=None, seed=0):
     """
     if dtype is None:
         dtype = getattr(torch, np.asarray(state_np['D']).dtype.name)
-    return state_from_numpy(state_np, device, dtype, seed=seed)
+    return state_from_numpy(state_np, _resolve_device(device), dtype,
+                            seed=seed)
 
 
 def config_from_jax(cfg, device_type='cuda'):
@@ -72,16 +75,18 @@ def masker_from_jax(masker):
     return NumpyMasker(**params).fit()
 
 
-def recsys_state_from_jax(state_np, device='cpu', dtype=None):
+def recsys_state_from_jax(state_np, device='cuda', dtype=None):
     """The port's recsys state from the JAX one on the host.
 
     ``state_np`` maps ``D``, ``C``, ``B`` and ``code`` (the JAX
     estimator's ``_D``, ``_C``, ``_B``, ``_code``) and the step's
     ``comp_norm``, ``feature_n_iter`` and ``n_iter`` to numpy values.
-    Returns a dict of the same keys: float tensors on ``device`` in
-    ``dtype`` (default: the dictionary's), ``feature_n_iter`` as int32
+    Returns a dict of the same keys: float tensors on ``device`` (the
+    card unless the caller asks for the CPU) in ``dtype`` (default: the
+    dictionary's), ``feature_n_iter`` as int32
     and ``n_iter`` as a host int, the arguments of
     ``decomposition.recsys._recsys_batch_step``."""
+    device = _resolve_device(device)
     if dtype is None:
         dtype = getattr(torch, np.asarray(state_np['D']).dtype.name)
     out = {name: torch.as_tensor(np.array(state_np[name])).to(device, dtype)

@@ -5,7 +5,8 @@ estimators (``fMRIDictFact``, ``fMRICoder``, ``rfMRIDictionaryScorer``),
 method table, record-streaming driver, epoch-5 Gram upgrade, reduction
 annealing and sign flip, over the host maskers of
 ``modl_tpu_torch.input_data.fmri`` (numpy masks and ``.npy`` records;
-no NIfTI). ``device`` places the inner ``DictFact`` and ``Coder``.
+NIfTI images through nilearn where it is installed). ``device`` places
+the inner ``DictFact`` and ``Coder``.
 
 The driver streams records through ``DictFact._partial_fit_device``.
 On the raw path (a masker with ``transform_raw``, no temporal filter, no
@@ -14,6 +15,8 @@ from its memory map into pinned host memory and on to the card on a
 side stream, while the card trains on the previous record; detrend and
 standardize then run on the device (``_clean_device``). Multi-epoch raw
 fits keep the transferred records on the card (``_RecordCache``).
+Other maskers (nilearn's) clean each record on the host, and the fit
+copies the cleaned rows in the state's dtype.
 
 The JAX package's documented deviation from the reference holds: the
 'gram' upgrade and the per-sample indices of 'average'/'gram' are live.
@@ -89,7 +92,8 @@ class _RecordCache:
 
 
 def _lazy_scan(imgs):
-    """Record lengths + dtype without loading voxel data."""
+    """Record lengths + dtype without loading voxel data (NIfTI records
+    through nilearn's ``check_niimg``: the header's length and dtype)."""
     n_samples_list = []
     dtype = np.float32
     for img in imgs:
@@ -100,9 +104,11 @@ def _lazy_scan(imgs):
         elif isinstance(img, np.ndarray):
             n = img.shape[-1] if img.ndim == 4 else img.shape[0]
             dtype = img.dtype
-        else:
-            raise ValueError('Cannot load %r without nibabel/nilearn'
-                             % (img,))
+        else:  # NIfTI path or image, via nilearn
+            from nilearn._utils import check_niimg
+            ni = check_niimg(img)
+            n = ni.shape[3]
+            dtype = ni.get_data_dtype()
         n_samples_list.append(int(n))
     return n_samples_list, np.dtype(dtype)
 
@@ -525,8 +531,10 @@ class fMRIDictFact(fMRICoderMixin):
             return masker.n_voxels_
         if isinstance(getattr(masker, 'mask_img_', None), np.ndarray):
             return int(masker.mask_img_.sum())
-        raise ValueError('cannot count the voxels of masker %r without '
-                         'nibabel/nilearn' % (masker,))
+        # nilearn masker: the non-zeros of its mask image
+        from nilearn._utils import check_niimg
+        return int(np.sum(np.asanyarray(
+            check_niimg(masker.mask_img_).dataobj) != 0))
 
 
 class fMRICoder(fMRICoderMixin):
@@ -552,7 +560,9 @@ class fMRICoder(fMRICoderMixin):
 
 
 class rfMRIDictionaryScorer:
-    """Callback recording the test objective over time."""
+    """Callback recording the test objective over time; with
+    ``artifact_dir``, the flipped components at each call and ``info``
+    (pickled to ``info.pkl``)."""
 
     def __init__(self, test_imgs, test_confounds=None, info=None,
                  artifact_dir=None):
@@ -592,9 +602,13 @@ class rfMRIDictionaryScorer:
             self.info['iter'] = self.iter
         if self.artifact_dir is not None:
             import os
-            from joblib import dump
+            import pickle
             components = _flip(dict_fact.components_)
             np.save(os.path.join(self.artifact_dir, 'components_%i.npy'
                                  % dict_fact.n_iter_), components)
             if self.info is not None:
-                dump(self.info, os.path.join(self.artifact_dir, 'info.pkl'))
+                # a plain pickle (joblib.load reads it too), so that the
+                # scorer runs where joblib is not installed
+                with open(os.path.join(self.artifact_dir, 'info.pkl'),
+                          'wb') as f:
+                    pickle.dump(self.info, f)

@@ -1,11 +1,19 @@
 """Masker abstraction for fMRI-like data, on the host.
 
-Counterpart of ``modl_tpu/input_data/fmri/base.py`` restricted to its
-native path: ``NumpyMasker`` masks 4-D arrays and ``.npy`` records with
-a boolean 3-D mask. nilearn and nibabel are not used: a NIfTI path or
-any other non-``.npy`` string raises the error the JAX package raises
-where nilearn is missing.
+Counterpart of ``modl_tpu/input_data/fmri/base.py``. The native path is
+``NumpyMasker``: a boolean 3-D mask over 4-D arrays and ``.npy``
+records. NIfTI masks and records go to nilearn's ``MultiNiftiMasker``
+where nilearn is installed, as in the JAX package; without it a NIfTI
+path raises the JAX package's error.
+
+``HAS_NILEARN`` says whether nilearn can be imported; nilearn itself is
+imported at first use, so the package imports where it is absent.
+``MultiNiftiMasker`` is nilearn's class once a NIfTI mask needed it.
+Both are read at call time (``_nifti_masker_class``), so a test or a
+late install can set them.
 """
+import copy
+import importlib.util
 import inspect
 import warnings
 
@@ -14,7 +22,27 @@ import numpy as np
 from ...base import BaseEstimator
 
 __all__ = ["NumpyMasker", "BaseNilearnEstimator", "check_embedded_masker",
-           "check_embedded_nifti_masker"]
+           "check_embedded_nifti_masker", "safe_to_filename", "HAS_NILEARN"]
+
+
+def _importable(name):
+    try:
+        return importlib.util.find_spec(name) is not None
+    except (ImportError, ValueError):
+        return False
+
+
+HAS_NILEARN = _importable('nilearn')
+MultiNiftiMasker = None
+
+
+def _nifti_masker_class():
+    """nilearn's ``MultiNiftiMasker`` (imported at first use)."""
+    global MultiNiftiMasker
+    if MultiNiftiMasker is None:
+        from nilearn.input_data import MultiNiftiMasker as cls
+        MultiNiftiMasker = cls
+    return MultiNiftiMasker
 
 
 class NumpyMasker(BaseEstimator):
@@ -205,18 +233,30 @@ def _butterworth(data, t_r, low_pass, high_pass, order=5):
     return sosfiltfilt(sos, data, axis=0)
 
 
+def safe_to_filename(img, filename):
+    """Save ``img`` without mutating it: nibabel may update an image's
+    header while it writes, so a deep copy is saved, and the image keeps
+    its joblib hash."""
+    img = copy.deepcopy(img)
+    img.to_filename(filename)
+
+
 def _load_img(img):
-    """A record as an array: ``.npy`` paths are memory-mapped."""
+    """A record as an array: ``.npy`` paths are memory-mapped, other
+    paths read by nilearn's ``check_niimg``."""
     if isinstance(img, str):
         if img.endswith('.npy'):
             return np.load(img, mmap_mode='r')
+        if HAS_NILEARN:
+            from nilearn._utils import check_niimg
+            return np.asanyarray(check_niimg(img).dataobj)
         raise ValueError('Cannot load %r without nibabel/nilearn' % img)
     return np.asarray(img)
 
 
 class BaseNilearnEstimator(BaseEstimator):
     """Estimator base that builds its masker from its parameters (the
-    JAX package's ``BaseNilearnEstimator`` on the numpy masker only)."""
+    JAX package's ``BaseNilearnEstimator``)."""
 
     def __init__(self, mask=None, smoothing_fwhm=None, standardize=True,
                  detrend=True, low_pass=None, high_pass=None, t_r=None,
@@ -261,15 +301,27 @@ def check_embedded_masker(estimator):
       estimator's, with a warning listing each conflict. A fitted mask
       (``mask_img_``) is carried over.
     - otherwise the masker parameters found on the estimator are
-      forwarded to a :class:`NumpyMasker`, with ``mask`` as the mask.
+      forwarded, with ``mask`` as the mask, to a :class:`NumpyMasker`
+      for ndarray / ``.npy`` masks (and no mask), and to nilearn's
+      ``MultiNiftiMasker`` for NIfTI images and paths where nilearn is
+      installed.
     - technical params (n_jobs, memory, memory_level - 1, verbose) are
       always forwarded from the estimator.
+
+    A masker is any estimator with ``get_params`` and a ``mask_img``
+    (the port's, or a scikit-learn one such as nilearn's).
     """
     mask = getattr(estimator, 'mask', None)
 
-    is_masker = isinstance(mask, BaseEstimator) and hasattr(mask,
-                                                            'mask_img')
-    masker_class = mask.__class__ if is_masker else NumpyMasker
+    is_masker = hasattr(mask, 'get_params') and hasattr(mask, 'mask_img')
+    if is_masker:
+        masker_class = mask.__class__
+    elif HAS_NILEARN and mask is not None and not (
+            isinstance(mask, np.ndarray)
+            or isinstance(mask, str) and mask.endswith('.npy')):
+        masker_class = _nifti_masker_class()
+    else:
+        masker_class = NumpyMasker
 
     masker_param_names = _init_params(masker_class)
     estimator_params = {name: getattr(estimator, name)
@@ -319,5 +371,5 @@ def check_embedded_masker(estimator):
     return masker
 
 
-# the JAX package's reference-named alias
+# the JAX package's reference-named alias (NIfTI and numpy masks alike)
 check_embedded_nifti_masker = check_embedded_masker

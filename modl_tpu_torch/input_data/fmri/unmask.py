@@ -1,15 +1,18 @@
 """Raw-data masker: ``.npy`` paths and ndarrays as (memory-mapped) loads.
 
-Counterpart of ``modl_tpu/input_data/fmri/unmask.py`` (``MultiRawMasker``)
-without nilearn: pre-unmasked records are 2-D (n_frames, n_voxels)
-arrays on disk, and transform is a memory-mapped load plus optional
-detrend/standardize. An image object is read through its ``dataobj``;
-any other non-``.npy`` input raises the error the JAX package raises
-where nilearn is missing.
+Counterpart of ``modl_tpu/input_data/fmri/unmask.py`` (``MultiRawMasker``):
+pre-unmasked records are 2-D (n_frames, n_voxels) arrays on disk, and
+transform is a memory-mapped load plus optional detrend/standardize.
+Other inputs (NIfTI paths, image objects) go to nilearn's
+``MultiNiftiMasker`` where nilearn is installed; without it an image
+object is read through its ``dataobj``, and anything else raises.
+``base.HAS_NILEARN`` and ``base.MultiNiftiMasker`` are read at each
+call, never copied here.
 """
 import numpy as np
 
 from ...base import BaseEstimator
+from . import base as _base
 from .base import NumpyMasker
 
 __all__ = ["MultiRawMasker"]
@@ -44,9 +47,21 @@ class MultiRawMasker(BaseEstimator):
             self.n_voxels_ = self._backing.n_voxels_
         return self
 
-    def _image_object(self, imgs, confounds=None, raw=False):
-        """Non-``.npy`` input: an image object's ``dataobj``, else the
-        JAX package's no-nilearn error."""
+    def _nifti_fallback(self, imgs, confounds=None, raw=False):
+        """Non-``.npy`` input: nilearn's masker (built once, then reused)
+        where nilearn is installed; else an image object's ``dataobj``
+        through the native masker, else the JAX package's no-nilearn
+        error. nilearn's masker has no raw mode: it always cleans."""
+        if _base.HAS_NILEARN:
+            masker = getattr(self, '_nifti_masker_', None)
+            if masker is None:
+                masker = _base._nifti_masker_class()(
+                    mask_img=self.mask_img,
+                    smoothing_fwhm=self.smoothing_fwhm,
+                    standardize=self.standardize, detrend=self.detrend)
+                masker.fit()
+                self._nifti_masker_ = masker
+            return masker.transform_single_imgs(imgs, confounds=confounds)
         if hasattr(imgs, 'dataobj'):
             data = np.asanyarray(imgs.dataobj)
             return (self._backing.transform_raw(data) if raw
@@ -68,7 +83,7 @@ class MultiRawMasker(BaseEstimator):
             return [self.transform(img, confounds) for img in imgs]
         data = self._load(imgs)
         if data is None:
-            return self._image_object(imgs, confounds=confounds)
+            return self._nifti_fallback(imgs, confounds=confounds)
         # NumpyMasker takes 2-D (pre-unmasked) and 4-D inputs alike
         return self._backing.transform(data, confounds=confounds)
 
@@ -76,7 +91,7 @@ class MultiRawMasker(BaseEstimator):
         """Mask-only load (see NumpyMasker.transform_raw)."""
         data = self._load(imgs)
         if data is None:
-            return self._image_object(imgs, raw=True)
+            return self._nifti_fallback(imgs, raw=True)
         return self._backing.transform_raw(data)
 
     def inverse_transform(self, components):

@@ -178,6 +178,39 @@ def test_pickled_cuda_estimator_needs_a_card(make):
         pickle.loads(blob)
 
 
+def test_state_carriers_default_to_the_card(monkeypatch):
+    """``convert.state_from_jax`` and ``recsys_state_from_jax`` carry a
+    state onto the card unless the caller asks for the CPU: without a
+    card their default raises in ``_resolve_device``, never lands on the
+    CPU."""
+    import inspect
+    for fn in (convert.state_from_jax, convert.recsys_state_from_jax):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    df = JaxDictFact(**KW).prepare(n_samples=60, X=np.random.RandomState(
+        0).randn(60, 24))
+    host = _state_to_host(df._state)
+    recsys = {name: host[name] for name in ('D', 'C', 'B', 'code',
+                                            'comp_norm')}
+    recsys.update(feature_n_iter=np.zeros(24, np.int32), n_iter=0)
+    asked = []
+
+    def spy(device):
+        asked.append(str(device))
+        return resolve(device)
+
+    resolve = convert._resolve_device
+    monkeypatch.setattr(convert, '_resolve_device', spy)
+    for fn, state in ((convert.state_from_jax, host),
+                      (convert.recsys_state_from_jax, recsys)):
+        if torch.cuda.is_available():
+            assert fn(state) is not None
+        else:
+            with pytest.raises(RuntimeError, match='no CUDA'):
+                fn(state)
+        assert fn(state, device='cpu') is not None
+    assert asked == ['cuda', 'cpu'] * 2
+
+
 def test_checkpoint_callback(tmp_path):
     X = np.random.RandomState(0).randn(60, 24)
     path = str(tmp_path / 'ckpt.npz')
@@ -228,7 +261,8 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path):
     with pytest.warns(UserWarning, match='seeded from its key'):
         st = load_state(path, device='cpu')
     host = _state_to_host(df._state)
-    ref = convert.state_from_jax(host, seed=seed_from_key(host['key']))
+    ref = convert.state_from_jax(host, device='cpu',
+                                 seed=seed_from_key(host['key']))
     assert st.D.dtype == torch.float64
     _assert_states_equal(st, ref)
 

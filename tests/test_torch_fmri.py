@@ -166,8 +166,10 @@ def test_non_npy_inputs_raise_without_nilearn():
     with pytest.raises(ValueError, match='without nibabel/nilearn'):
         tin.NumpyMasker(mask_img=np.ones((2, 2, 1), bool)).fit().transform(
             'subject.nii')
-    with pytest.raises(ValueError, match='without nibabel/nilearn'):
-        tfmri._lazy_scan(['subject.nii.gz'])
+    # a NIfTI record is scanned through nilearn, as in the JAX package
+    for module in (tfmri, jfmri):
+        with pytest.raises(ImportError, match='nilearn'):
+            module._lazy_scan(['subject.nii.gz'])
 
 
 @pytest.mark.parametrize('writer,reader', [(tin, jin), (jin, tin)])
@@ -423,3 +425,32 @@ def test_embedded_masker_conflict_warning():
     assert masker.t_r == 2.0 and masker.memory_level == 2
     assert hasattr(masker, 'mask_img_')
 
+
+
+def test_scorer_artifacts_need_no_joblib(tmp_path, monkeypatch):
+    """With ``artifact_dir`` the scorer saves the flipped components and
+    ``info``, as the JAX one does, where joblib cannot be imported (the
+    card's machine has none); ``info.pkl`` loads with pickle and with
+    ``joblib.load``."""
+    import pickle
+
+    import joblib
+    data, mask, _, _ = _make_dataset(n_subjects=3)
+    info = {}
+    scorer = tfmri.rfMRIDictionaryScorer(test_imgs=data[:1], info=info,
+                                         artifact_dir=str(tmp_path))
+    fd = tfmri.fMRIDictFact(method='masked', n_components=4, reduction=2,
+                            batch_size=10, n_epochs=1, alpha=1e-3, mask=mask,
+                            standardize=False, detrend=False, random_state=0,
+                            verbose=2, callback=scorer, device='cpu')
+    monkeypatch.setitem(__import__('sys').modules, 'joblib', None)
+    fd.fit(data[1:])
+    monkeypatch.undo()
+    saved = sorted(p.name for p in tmp_path.iterdir())
+    assert 'info.pkl' in saved and any(
+        name.startswith('components_') for name in saved)
+    with open(tmp_path / 'info.pkl', 'rb') as f:
+        assert pickle.load(f) == info == joblib.load(tmp_path / 'info.pkl')
+    assert info['score'] == scorer.score and info['iter'] == scorer.iter
+    last = np.load(tmp_path / f'components_{scorer.iter[-1]}.npy')
+    assert last.shape == (4, 400)

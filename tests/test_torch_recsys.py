@@ -180,7 +180,8 @@ def test_batch_steps_match_jax_from_carried_state(route, monkeypatch):
         names = ('D', 'C', 'B', 'comp_norm', 'feature_n_iter', 'n_iter',
                  'code')
         st = convert.recsys_state_from_jax(
-            {name: np.asarray(v) for name, v in zip(names, state)})
+            {name: np.asarray(v) for name, v in zip(names, state)},
+            device='cpu')
         for rows, order in draws[1:]:
             state = jax_step(state, rows, order)
     finally:

@@ -48,7 +48,8 @@ def run_steps(case):
     whole state after the steps (rank 0) and the collectives they made."""
     cfg = convert.config_from_jax(_jax_cfg(case['cfg'], case['shape']),
                                   device_type='cpu')
-    state = shard_state(convert.state_from_jax(case['state']), cfg.mesh)
+    state = shard_state(convert.state_from_jax(case['state'], device='cpu'),
+                        cfg.mesh)
     COLLECTIVES.clear()
     for X, idx, subset, n_valid, order in case['steps']:
         X_loc = shard_batch(T(X), cfg.mesh, feat=case['shape'][1] > 1)
