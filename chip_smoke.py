@@ -14,6 +14,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    times (CUDA events), the bound, the grid-wide exchanges a call made
    and a second launch held bitwise equal to the first; then the grid
    barrier alone (cooperative groups' and the kernel's own), in us;
+   then fista: the FISTA kernel against its plain version at the image
+   fit's solve (200 x 128, a shared Gram staged in shared memory), its
+   NMF, per-row Grams (``G_agg='average'``), ADHD-70's width with an
+   elastic-net code (100 x 70) and k=1,024 (Q read through L2): codes at
+   200 iterations within 1e-4 of max |w|, the iterations at the solver's
+   tol equal or one check apart and the batch objective within 1e-5, a
+   second launch and half the batch bitwise equal, the check-a-launch
+   driver bitwise equal to the one-launch solve, which also runs with
+   host reads forbidden; times, bounds and iterations;
 4. adhd70: ``DictFact(...).fit(X)`` at the ADHD-70 configuration of
    ``bench.py`` (k=70, 2,000 x 200,000 planted data, one epoch of 20
    steps): BCD and EMA-GEMM launches counted on the main path (one
@@ -21,6 +30,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    (none), a held-out objective below the initial dictionary's, agreement
    with the gate-off fit and with a refit through the plain BCD path, and
    samples/s;
+   then adhd70_l1: the same fit with DictFact's default l1 codes (FISTA
+   on the card): one FISTA and one BCD launch a step, every solve with
+   host reads forbidden, and a refit with both kernels' plain versions
+   within 1e-2;
    then dtype_policy: the same fit on the data cast to float64 with
    ``dtype=None`` runs float32 state, one BCD launch a step and the
    EMA-GEMM launches of phase 4; ``dtype=np.float64`` raises; a ``Coder``
@@ -58,7 +71,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    single-process fit's), the collectives and MB per step
    (``parallel.mesh.COLLECTIVES``), the epoch time, and the components
    within 1e-4 of max |D| of the single-process fit (recsys: and the
-   test RMSE within 1e-3);
+   test RMSE within 1e-3); then two gloo ranks on card 0 with the
+   adhd70_l1 fit on (2, 1): each rank solves half of a batch's codes by
+   FISTA, a check a launch, with the stop agreed over the ranks;
 6. ema_kernel: the EMA-GEMM kernel (3xTF32 on the tensor cores) against
    its plain version at the segment-end shapes of the fMRI legs and of the
    resident ADHD-70 fit and at two ragged ones (one of odd width), for pi
@@ -100,10 +115,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 11. image: ``ImageDictFact.fit`` at ``exps/exp_decompose_images.py``'s
    configuration (k=128, 16 x 16 patches, reduction 8, batch 200) on a
    768 x 1,024 grey synthetic image (the face's size; ~760k patches,
-   gathered buffer by buffer), one epoch: one BCD launch a step, held-out
-   score below the initial dictionary's, agreement with a plain-path refit
-   on a 20,000-patch subset, patches/s; then a short NMF fit (20,000
-   patches) with non-negative components and codes;
+   gathered buffer by buffer), one epoch: one BCD and one FISTA launch a
+   step, every solve with host reads forbidden, held-out score below the
+   initial dictionary's, agreement with a refit through both kernels'
+   plain versions on a 20,000-patch subset, patches/s; then a short NMF
+   fit (20,000 patches) with non-negative components and codes;
 12. drivers: the port's drivers on the card with ``MODL_OUTPUT`` under
    ``build/``: the HCP pipeline (``exps.hcp.unmask_hcp`` on 2 Gaussian
    volumes of 61 x 73 x 61 x 400 and the 200,000-voxel mask, then
@@ -113,7 +129,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    example of ``modl_tpu_torch.examples`` (``decompose_fmri`` and
    ``decompose_images`` for one epoch, the latter on its synthetic image
    as 'face' would download, the others at their defaults: at least one
-   BCD launch a learner step, the final score and seconds); and one run
+   BCD launch a learner step, the FISTA launches, the final score and
+   seconds); and one run
    of ``exps.exp_decompose_fmri`` (one epoch) through ``Experiment``.
 
 Phase 3 also holds the kernel at the recsys shape (50 x 10,677, l2 ball,
@@ -123,7 +140,8 @@ fit calls it) and at the image NMF shapes (128 x 32 and 128 x 75), and the
 recsys route at a width one kernel call does not take (256 x 17,770,
 Netflix's item count) through the block driver. The kernel-off refits of
 phases 10 and 11 run with the kernel's wrapper swapped for its plain
-version (``plain_bcd``).
+version (``plain_bcd``), and the image refit the FISTA kernel's too
+(``plain_fista``).
 
 Then one JSON line per kernel (``{"kernels": [...]}``) and, last, the
 device line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -181,6 +199,38 @@ BLOCKED_RECSYS = (256, 17_770, 0.63)
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, f32
 # flop/s outside the tensor cores, 3xTF32 flop/s (495 / 3)
 HBM_BPS, F32_FLOPS, TF32X3_FLOPS = 3.35e12, 67e12, 495e12 / 3
+# FISTA kernel vs plain version: (label, b, k, features, reduction,
+# shared Q, code l1_ratio, positive): the image fit's solve (k=128, a
+# batch of 200, the Gram of a 32-feature subset of the 256 pixels scaled
+# by 8, rank 32), its NMF, the same with per-row Grams of their own
+# subsets (G_agg='average'), ADHD-70's width with an elastic-net code,
+# k=1,024, whose shared Q is read from L2; then the image fit's
+# transform and score of its 2,000 test patches on the full Gram (tiles
+# of 8 rows, 250 tiles over the blocks: state loaded and stored each
+# check period, four rows a warp in the product), 500 rows (tiles of 4:
+# two rows a warp), per-row Grams over 1,200 rows (tiles of 3, looped),
+# at k=200 (staged one row a tile, whatever the batch) and at k=256
+# (read from device memory)
+FISTA_CASES = [('image', 200, 128, 256, 8, True, 1.0, False),
+               ('nmf', 200, 128, 256, 8, True, 1.0, True),
+               ('average', 200, 128, 256, 8, False, 1.0, False),
+               ('adhd70_enet', 100, 70, 2400, 12, True, 0.5, False),
+               ('k1024', 200, 1024, 4096, 2, True, 1.0, False),
+               ('image_score', 2000, 128, 256, 1, True, 1.0, False),
+               ('rows500', 500, 128, 256, 1, True, 1.0, False),
+               ('average_b1200', 1200, 128, 256, 8, False, 1.0, False),
+               ('average_k200', 200, 200, 1600, 8, False, 1.0, False),
+               ('average_k256', 200, 256, 2048, 8, False, 1.0, False)]
+FISTA_ALPHA = 0.08          # exps/exp_decompose_images.py's alpha
+FISTA_FIXED = 200           # iterations of the fixed-count check (tol 0)
+# DictFact's tol, and 20 x its max_iter (ops/solvers.py::_enet_dispatch)
+FISTA_TOL, FISTA_MAX_ITER = 1e-2, 2000
+# codes at a fixed count vs the plain version, relative to max |w| (f32
+# sums of Q z in another order, carried through 200 iterations; the
+# readings were 2.9e-7 to 6.2e-6 on an H100 80GB HBM3 at 700 W); the
+# batch objective at the solver's tol, relative
+FISTA_RTOL = 3e-5
+FISTA_OBJ_RTOL = 1e-5
 # grid barriers a call of the barrier probe times
 BARRIERS = 2000
 # both run the same sequential f32 recurrence with sums taken in another
@@ -386,6 +436,185 @@ def plain_bcd():
         bcd.bcd_update = saved
 
 
+@contextlib.contextmanager
+def plain_fista():
+    """The FISTA kernel's wrapper swapped for its plain version (which
+    then runs on the card) in the code solvers' dispatch; restored
+    after."""
+    from modl_tpu_torch.ops import fista, solvers
+    saved = solvers.fista_gram
+    solvers.fista_gram = fista.fista_gram_reference
+    try:
+        yield
+    finally:
+        solvers.fista_gram = saved
+
+
+@contextlib.contextmanager
+def fista_without_host_reads():
+    """Every FISTA solve of the code solvers' dispatch run under
+    ``torch.cuda.set_sync_debug_mode('error')``: a solve that waits for
+    the card (reads a value back) raises."""
+    import torch
+    from modl_tpu_torch.ops import solvers
+    saved = solvers.fista_gram
+
+    def guarded(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return saved(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+
+    solvers.fista_gram = guarded
+    try:
+        yield
+    finally:
+        solvers.fista_gram = saved
+
+
+def fista_inputs(b, k, n, reduction, shared, g):
+    """(w0, Q, q, y_norm2) of one code solve on the card: unit-norm atoms
+    D (k, n), rows X = sparse codes @ D + noise, and the masked step's
+    estimates from a subset of n / reduction features scaled by the
+    reduction, one subset for the batch (shared Q) or one a row."""
+    import torch
+    dev = dict(device='cuda', dtype=torch.float32, generator=g)
+    D = torch.randn(k, n, **dev)
+    D /= D.norm(dim=1, keepdim=True)
+    codes = torch.randn(b, k, **dev) * (torch.rand(b, k, **dev) < 0.05)
+    X = codes @ D + 0.1 * torch.randn(b, n, **dev)
+    s = n // reduction
+    if shared:
+        cols = torch.randperm(n, device='cuda', generator=g)[:s]
+        Ds = D[:, cols]
+        Q = Ds @ Ds.T * reduction
+        q = X[:, cols] @ Ds.T * reduction
+    else:
+        cols = torch.argsort(torch.rand(b, n, **dev), dim=1)[:, :s]
+        Ds = D[:, cols].permute(1, 0, 2)                  # (b, k, s)
+        Q = Ds @ Ds.transpose(1, 2) * reduction
+        q = torch.einsum('bs,bks->bk', torch.gather(X, 1, cols),
+                         Ds) * reduction
+    return (torch.ones(b, k, device='cuda'), Q.contiguous(), q.contiguous(),
+            (X * X).sum(1))
+
+
+def fista_objective(w, Q, q, y2, l1, l2):
+    """The batch's penalised objective sum_i 1/2 ||x_i||^2 - q_i.w_i +
+    1/2 w_i Q_i w_i + l1 |w_i|_1 + l2/2 |w_i|^2, in float64."""
+    w, Q, q, y2 = (t.double() for t in (w, Q, q, y2))
+    Qw = w @ Q if Q.ndim == 2 else (Q @ w[:, :, None])[:, :, 0]
+    return float((0.5 * y2 - (q * w).sum(1) + 0.5 * (w * Qw).sum(1)
+                  + l1 * w.abs().sum(1) + 0.5 * l2 * (w * w).sum(1)).sum())
+
+
+def fista_bound(b, k, shared, iters):
+    """(ms, 'bytes' or 'operations'): the least time of a solve of
+    ``iters`` iterations on an H100 SXM. Operations: 2 b k^2 flops for Q z
+    an iteration and for Q w a check, 2 k^2 (per row: 2 b k^2) for each of
+    the 17 power-iteration products (f32, outside the tensor cores);
+    bytes: w0, q, Q and ||x||^2 read once, w written once."""
+    from modl_tpu_torch.ops import fista
+    prods = iters + iters // fista.CHECK_EVERY
+    flops = 2 * b * k * k * prods + 2 * (1 if shared else b) * k * k * (
+        fista.POWER_ITERS + 1)
+    t_ops = flops / F32_FLOPS
+    t_bytes = 4 * (3 * b * k + b + (k * k if shared else b * k * k)) \
+        / HBM_BPS
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def fista_case(label, b, k, n, reduction, shared, l1_ratio, positive, seed):
+    """The FISTA kernel against its plain version at one shape: codes at
+    a fixed count (tol 0), the iterations and batch objective at the
+    solver's tol, a second launch bitwise equal to the first, half the
+    batch alone equal to its rows of the whole batch's solve, the check-
+    at-a-time driver (``agree``) bitwise equal to the one-launch solve,
+    and the one-launch solve with host reads forbidden."""
+    import torch
+    from modl_tpu_torch.ops import fista
+    from modl_tpu_torch.ops.precision import full_f32
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    w0, Q, q, y2 = fista_inputs(b, k, n, reduction, shared, g)
+    l1, l2 = FISTA_ALPHA * l1_ratio, FISTA_ALPHA * (1.0 - l1_ratio)
+    fixed = (w0, Q, q, y2, l1, l2, positive, FISTA_FIXED, 0.0)
+    solve = (w0, Q, q, y2, l1, l2, positive, FISTA_MAX_ITER, FISTA_TOL)
+    half = b // 2
+    sub = (w0[:half], Q if shared else Q[:half].contiguous(), q[:half],
+           y2[:half], l1, l2, positive, FISTA_FIXED, 0.0)
+    checks = []
+
+    def counted(left):
+        checks.append(left)
+        return left
+
+    with full_f32():
+        wk = fista.fista_gram(*fixed)
+        iters_fixed = fista.last_iterations()
+        wk2 = fista.fista_gram(*fixed)
+        wh = fista.fista_gram(*sub)
+        wr = fista.fista_gram_reference(*fixed)
+        ws = fista.fista_gram(*solve)
+        iters = fista.last_iterations()
+        before = fista.LAUNCHES
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            fista.fista_gram(*solve)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        launches = fista.LAUNCHES - before
+        before = fista.LAUNCHES
+        wc = fista.fista_gram(*solve, agree=lambda left: left)
+        chunk_launches = fista.LAUNCHES - before
+        wp = fista.fista_gram_reference(*solve, agree=counted)
+        torch.cuda.synchronize()
+    iters_plain = min(fista.CHECK_EVERY * len(checks), FISTA_MAX_ITER)
+    finite = bool(torch.isfinite(wk).all() and torch.isfinite(ws).all())
+    err = float((wk - wr).abs().max())
+    scale = float(wr.abs().max())
+    obj_k = fista_objective(ws, Q, q, y2, l1, l2)
+    obj_p = fista_objective(wp, Q, q, y2, l1, l2)
+    obj_rel = abs(obj_k - obj_p) / abs(obj_p)
+    bitwise = bool(torch.equal(wk, wk2))
+    rows = bool(torch.equal(wh, wk[:half]))
+    chunks = bool(torch.equal(wc, ws))
+    with full_f32():
+        ms = cuda_ms(lambda: fista.fista_gram(*solve), 10)
+        plain_ms = cuda_ms(lambda: fista.fista_gram_reference(*solve), 2)
+    bound_ms, bound_by = fista_bound(b, k, shared, iters)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rt, grid, _, q_smem = fista._plan(b, k, shared, sms)
+    ok = (finite and err <= FISTA_RTOL * scale and bitwise and rows
+          and chunks and launches == 1
+          and abs(iters - iters_plain) <= fista.CHECK_EVERY
+          and obj_rel <= FISTA_OBJ_RTOL)
+    phase('fista', case=label, b=b, k=k, Q='shared' if shared else 'per_row',
+          rows_a_tile=rt, blocks=grid, q_smem=q_smem, l1_ratio=l1_ratio,
+          positive=positive, fixed_iterations=iters_fixed,
+          max_abs_err=f'{err:.3e}', rel_err=f'{err / scale:.3e}',
+          iterations=iters, iterations_plain=iters_plain,
+          objective=f'{obj_k:.9g}', objective_plain=f'{obj_p:.9g}',
+          objective_rel=f'{obj_rel:.3e}', bitwise_repeat=bitwise,
+          rows_invariant=rows, chunks_bitwise=chunks,
+          chunk_launches=chunk_launches, launches=launches, host_reads=0,
+          ms=f'{ms:.4f}', plain_ms=f'{plain_ms:.4f}',
+          bound_ms=f'{bound_ms:.4f}', bound_by=bound_by,
+          share_of_bound=f'{bound_ms / ms:.4f}', ok=ok)
+    if not ok:
+        raise RuntimeError(f'fista: the kernel disagrees with its plain '
+                           f'version or with itself at {label}')
+    return err, ms, plain_ms, bound_ms, bound_by
+
+
+def fista_phase():
+    """Phase fista: every FISTA_CASES shape; returns the cases' results
+    (the image case first)."""
+    return [fista_case(*case, seed=100 + i)
+            for i, case in enumerate(FISTA_CASES)]
+
+
 def barrier_phase(grid):
     """Microseconds per grid barrier alone, on a cooperative grid of
     ``grid`` blocks of the BCD kernel's size: cooperative groups'
@@ -474,6 +703,53 @@ def check_resident_ema(label, cfg, n_rows, batch, on, off):
         raise RuntimeError(f'{label}: {on} EMA-GEMM launches with the gate '
                            f'on and {off} off, expected {want} and 0')
     return want
+
+
+def adhd70_l1_phase(X, X_test):
+    """DictFact's default codes (``code_l1_ratio=1``, FISTA on the card)
+    at ADHD-70 width through ``DictFact.fit``: one FISTA and one BCD
+    launch a step, every solve without a host read, a held-out objective
+    below the initial dictionary's and within FIT_RTOL of a refit with
+    both kernels' plain versions. Returns (components, (BCD, EMA-GEMM)
+    launches, FISTA launches)."""
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.ops import fista
+    kw = dict(ADHD, code_l1_ratio=1.0)
+    steps = ADHD_SAMPLES // ADHD['batch_size']
+    obj0 = DictFact(**kw, device='cuda').prepare(
+        n_samples=ADHD_SAMPLES, X=X).score(X_test)
+    fista.LAUNCHES = 0
+    with fista_without_host_reads():
+        df, seconds, launches, ema = resident_fit(kw, X, True)
+    fista_launches = fista.LAUNCHES
+    obj = df.score(X_test)
+    plain = DictFact(**kw, device='cuda')
+    fista.LAUNCHES = 0
+    with plain_bcd(), plain_fista():
+        plain_seconds = timed_fit(plain, X)
+        obj_plain = plain.score(X_test)
+    plain_launches = fista.LAUNCHES
+    rel = abs(obj - obj_plain) / abs(obj_plain)
+    phase('adhd70_l1', code_solver=df._cfg.code_solver, steps=steps,
+          fista_launches=fista_launches, bcd_launches=launches,
+          ema_launches=ema, fista_launches_plain=plain_launches,
+          host_reads_in_solves=0, objective=f'{obj:.6g}',
+          objective_init=f'{obj0:.6g}', objective_plain=f'{obj_plain:.6g}',
+          rel_diff=f'{rel:.3e}',
+          fit_samples_per_s=f'{ADHD_SAMPLES / seconds:.1f}',
+          epoch_samples_per_s=f'{ADHD_SAMPLES / df.time_:.1f}',
+          plain_fit_samples_per_s=f'{ADHD_SAMPLES / plain_seconds:.1f}')
+    if (fista_launches, launches, plain_launches) != (steps, steps, 0):
+        raise RuntimeError(f'ADHD-70 l1: {fista_launches} FISTA and '
+                           f'{launches} BCD launches ({plain_launches} '
+                           f'plain), expected {steps} each (0)')
+    if not (math.isfinite(obj) and obj < obj0):
+        raise RuntimeError(f'ADHD-70 l1: objective {obj} not below the '
+                           f'initial {obj0}')
+    if not rel < FIT_RTOL:
+        raise RuntimeError(f'ADHD-70 l1: kernel and plain fits differ: '
+                           f'rel {rel}')
+    return df.components_, (launches, ema), fista_launches
 
 
 def ema_case(ema_gemm, k, m, n, seed):
@@ -1132,7 +1408,8 @@ def recsys_ml10m(X_tr, X_te):
 
 def image_phase():
     """exps/exp_decompose_images.py's configuration through
-    ImageDictFact.fit; returns the BCD launches of the main fit."""
+    ImageDictFact.fit; returns the BCD and FISTA launches of the main
+    fit."""
     import torch
     from modl_tpu_torch import ImageDictFact
     from modl_tpu_torch.benchmarks.workloads import (IMAGE, IMAGE_SHAPE,
@@ -1141,7 +1418,7 @@ def image_phase():
     from modl_tpu_torch.datasets.image import make_synthetic_image
     from modl_tpu_torch.feature_extraction.image import \
         LazyCleanPatchExtractor
-    from modl_tpu_torch.ops import bcd
+    from modl_tpu_torch.ops import bcd, fista
 
     image = make_synthetic_image(*IMAGE_SHAPE)
     test = LazyCleanPatchExtractor(
@@ -1149,48 +1426,53 @@ def image_phase():
         random_state=IMAGE['random_state'] + 1).fit(image).transform()
     init = ImageDictFact(**IMAGE, n_epochs=0, device='cuda').fit(image)
     score0 = init.score(test)
-    bcd.LAUNCHES = 0
+    bcd.LAUNCHES = fista.LAUNCHES = 0
     est = ImageDictFact(**IMAGE, n_epochs=1, device='cuda')
-    seconds = timed_fit(est, image)
-    launches = bcd.LAUNCHES
+    with fista_without_host_reads():
+        seconds = timed_fit(est, image)
+    launches, fista_launches = bcd.LAUNCHES, fista.LAUNCHES
     score = est.score(test)
     n_rows = est.n_iter_
     steps = image_steps(n_rows, est)
     cfg = est.dict_fact_._cfg
     sub = dict(IMAGE, n_epochs=1, max_patches=IMAGE_SUBSET, device='cuda')
     kernel_sub = ImageDictFact(**sub).fit(image)
-    bcd.LAUNCHES = 0
+    bcd.LAUNCHES = fista.LAUNCHES = 0
     plain_sub = ImageDictFact(**sub)
-    with plain_bcd():
+    with plain_bcd(), plain_fista():
         plain_seconds = timed_fit(plain_sub, image)
-    plain_launches = bcd.LAUNCHES
-    score_k, score_p = kernel_sub.score(test), plain_sub.score(test)
+        score_p = plain_sub.score(test)
+    plain_launches = bcd.LAUNCHES + fista.LAUNCHES
+    score_k = kernel_sub.score(test)
     rel = abs(score_k - score_p) / abs(score_p)
-    bcd.LAUNCHES = 0
+    bcd.LAUNCHES = fista.LAUNCHES = 0
     nmf = ImageDictFact(**dict(sub, setting='NMF'))
     nmf_seconds = timed_fit(nmf, image)
-    nmf_launches = bcd.LAUNCHES
+    nmf_launches, nmf_fista = bcd.LAUNCHES, fista.LAUNCHES
     nmf_codes = nmf.transform(test)
     nmf_ok = bool((nmf.components_ >= 0).all() and (nmf_codes >= 0).all()
                   and nmf_codes.any() and np.isfinite(nmf.score(test)))
     phase('image', image=f'{IMAGE_SHAPE[0]}x{IMAGE_SHAPE[1]}',
           patches=n_rows, features=est.dict_fact_._n_features,
           len_subset=cfg.len_subset, len_max=cfg.len_max,
-          steps=steps, bcd_launches=launches,
-          bcd_launches_plain=plain_launches, score=f'{score:.6g}',
+          steps=steps, bcd_launches=launches, fista_launches=fista_launches,
+          host_reads_in_solves=0, launches_plain=plain_launches,
+          score=f'{score:.6g}',
           score_init=f'{score0:.6g}', subset=IMAGE_SUBSET,
           subset_score=f'{score_k:.6g}', subset_score_plain=f'{score_p:.6g}',
           rel_diff=f'{rel:.3e}', nmf_launches=nmf_launches,
-          nmf_nonnegative=nmf_ok,
+          nmf_fista_launches=nmf_fista, nmf_nonnegative=nmf_ok,
           fit_patches_per_s=f'{n_rows / seconds:.1f}',
           compute_patches_per_s=f'{n_rows / est.time_:.1f}',
           subset_fit_s=f'{plain_seconds:.4f}',
           nmf_fit_s=f'{nmf_seconds:.4f}', fit_s=f'{seconds:.4f}')
     nmf_steps = image_steps(IMAGE_SUBSET, nmf)
-    if (launches, nmf_launches, plain_launches) != (steps, nmf_steps, 0):
-        raise RuntimeError(f'image: {launches} and {nmf_launches} BCD '
+    if ((launches, fista_launches, nmf_launches, nmf_fista, plain_launches)
+            != (steps, steps, nmf_steps, nmf_steps, 0)):
+        raise RuntimeError(f'image: {launches} and {nmf_launches} BCD and '
+                           f'{fista_launches} and {nmf_fista} FISTA '
                            f'launches ({plain_launches} plain), expected '
-                           f'{steps} and {nmf_steps} (0)')
+                           f'{steps} and {nmf_steps} each (0)')
     if not (math.isfinite(score) and score < score0):
         raise RuntimeError(f'image: held-out score {score} not below the '
                            f'initial {score0}')
@@ -1202,7 +1484,7 @@ def image_phase():
                            'non-negative and finite')
     if not bool(torch.isfinite(est.dict_fact_._state.D).all()):
         raise RuntimeError('image: dictionary not finite')
-    return launches
+    return launches, fista_launches
 
 
 @contextlib.contextmanager
@@ -1254,18 +1536,18 @@ def counting_steps():
 
 def driven(fn, count, **kwargs):
     """``fn(**kwargs)`` with its printing kept: (result, printed text,
-    seconds, BCD launches, EMA-GEMM launches, steps), the counts set to
-    0 just before."""
+    seconds, BCD launches, EMA-GEMM launches, steps, FISTA launches),
+    the counts set to 0 just before."""
     import torch
-    from modl_tpu_torch.ops import bcd, ema_gemm
+    from modl_tpu_torch.ops import bcd, ema_gemm, fista
     out = io.StringIO()
-    bcd.LAUNCHES = ema_gemm.LAUNCHES = count['steps'] = 0
+    bcd.LAUNCHES = ema_gemm.LAUNCHES = fista.LAUNCHES = count['steps'] = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         result = fn(**kwargs)
     torch.cuda.synchronize()
     return (result, out.getvalue(), time.perf_counter() - t0,
-            bcd.LAUNCHES, ema_gemm.LAUNCHES, count['steps'])
+            bcd.LAUNCHES, ema_gemm.LAUNCHES, count['steps'], fista.LAUNCHES)
 
 
 def final_score(name, result, text):
@@ -1306,8 +1588,8 @@ def drivers_phase(workdir):
                                            source_dir=src)
         with open(manifest) as f:
             n_records = len(json.load(f)['records'])
-        fd, _, seconds, bcd_n, ema_n, steps = driven(decompose_hcp.main,
-                                                     count)
+        fd, _, seconds, bcd_n, ema_n, steps, _ = driven(
+            decompose_hcp.main, count)
         cfg = fd.dict_fact_._cfg
         blocks = bcd_blocks(cfg)
         want = expected_launches(cfg, HCP_DRIVER_FRAMES, fd.batch_size,
@@ -1344,19 +1626,20 @@ def drivers_phase(workdir):
                  dict(n_epochs=1, source='lisboa')),
                 ('predict_recsys', predict_recsys.main, {}),
                 ('stability_selection', stability_selection.main, {})):
-            result, text, seconds, bcd_n, ema_n, steps = driven(fn, count,
-                                                                **kw)
+            result, text, seconds, bcd_n, ema_n, steps, fista_n = driven(
+                fn, count, **kw)
             score = final_score(name, result, text)
             phase('drivers', driver=f'examples.{name}', steps=steps,
                   bcd_launches=bcd_n, ema_launches=ema_n,
-                  score=f'{score:.6g}', seconds=f'{seconds:.2f}')
+                  fista_launches=fista_n, score=f'{score:.6g}',
+                  seconds=f'{seconds:.2f}')
             if not (steps > 0 and bcd_n >= steps and math.isfinite(score)):
                 raise RuntimeError(f'drivers: {name} launched {bcd_n} BCD '
                                    f'kernels over {steps} steps, score '
                                    f'{score}')
             launches[name] = (bcd_n, ema_n)
         # 3. one run of the fMRI experiment
-        run, _, seconds, bcd_n, ema_n, steps = driven(
+        run, _, seconds, bcd_n, ema_n, steps, _ = driven(
             exp_decompose_fmri.run, count, n_epochs=1)
         score = run.info['final_score']
         phase('drivers', driver='exps.exp_decompose_fmri', steps=steps,
@@ -1661,7 +1944,7 @@ def mesh_rank(rank, world, legs, device):
     import scipy.sparse as sp
     import torch
     from modl_tpu_torch import DictFact, RecsysDictFact
-    from modl_tpu_torch.ops import bcd, ema_gemm
+    from modl_tpu_torch.ops import bcd, ema_gemm, fista
     from modl_tpu_torch.parallel import mesh as pmesh
     out = []
     for leg in legs:
@@ -1680,7 +1963,7 @@ def mesh_rank(rank, world, legs, device):
         if device == 'cuda':
             torch.cuda.synchronize()
         pmesh.COLLECTIVES.clear()
-        bcd.LAUNCHES = ema_gemm.LAUNCHES = 0
+        bcd.LAUNCHES = ema_gemm.LAUNCHES = fista.LAUNCHES = 0
         t0 = time.perf_counter()
         est.fit(X)
         if device == 'cuda':
@@ -1688,6 +1971,7 @@ def mesh_rank(rank, world, legs, device):
         fit_s = time.perf_counter() - t0
         rec = dict(name=leg['name'], rank=rank,
                    launches=(bcd.LAUNCHES, ema_gemm.LAUNCHES),
+                   fista_launches=fista.LAUNCHES,
                    collectives=dict(pmesh.COLLECTIVES), fit_s=fit_s,
                    epoch_s=est.time_)
         D = est.components_
@@ -1712,7 +1996,9 @@ def mesh_rank(rank, world, legs, device):
 def mesh_legs(results, backend, legs):
     """Print each leg's line (its ranks' worst numbers) and hold it to its
     bounds: ``leg['expect']`` is its (BCD, EMA-GEMM) launches per rank
-    and its steps. Returns '<backend>_<leg>' -> launches per rank."""
+    and its steps, ``leg['fista_min']`` (where given) the least FISTA
+    launches per rank. Returns '<backend>_<leg>' -> (BCD, EMA-GEMM,
+    FISTA) launches per rank."""
     launches = {}
     for i, leg in enumerate(legs):
         recs = [r[i] for r in results]
@@ -1742,11 +2028,18 @@ def mesh_legs(results, backend, legs):
               collectives_feat=coll.get('calls_feat', 0),
               bcd_launches_per_rank=recs[0]['launches'][0],
               ema_launches_per_rank=recs[0]['launches'][1],
+              fista_launches_per_rank=recs[0]['fista_launches'],
               expected='/'.join(map(str, want)),
               max_diff=f'{diff:.3e}', **extra)
         if per_rank != {want}:
             raise RuntimeError(f'mesh {name}: launches per rank {per_rank}, '
                                f'expected {want}')
+        fista_per_rank = {r['fista_launches'] for r in recs}
+        if len(fista_per_rank) != 1 or min(fista_per_rank) < leg.get(
+                'fista_min', 0):
+            raise RuntimeError(f'mesh {name}: FISTA launches per rank '
+                               f'{fista_per_rank}, expected one count of '
+                               f'at least {leg.get("fista_min", 0)}')
         if not diff <= MESH_RTOL or not all(r['finite'] for r in recs):
             raise RuntimeError(f'mesh {name}: differs from the single-'
                                f'process fit by {diff:.3e} of max |D| '
@@ -1755,11 +2048,13 @@ def mesh_legs(results, backend, legs):
             raise RuntimeError(f'mesh {name}: test RMSE differs from the '
                                f'single-process fit by {rmse_diff:.3e} '
                                f'(bound {MESH_RMSE_TOL})')
-        launches[f'{backend}_{name}'] = recs[0]['launches']
+        launches[f'{backend}_{name}'] = (*recs[0]['launches'],
+                                         recs[0]['fista_launches'])
     return launches
 
 
-def mesh_phase(workdir, adhd, hcp, X_hcp, X_tr, X_te, mesh_only=False):
+def mesh_phase(workdir, adhd, hcp, X_hcp, X_tr, X_te, mesh_only=False,
+               adhd_l1=None):
     """The dp x feat mesh through torch.distributed (``parallel``): an
     NCCL world of every visible card (up to four) as (world, 1) on the
     ADHD-70 fit, then a gloo world of four ranks on card 0 with ADHD-70
@@ -1769,8 +2064,12 @@ def mesh_phase(workdir, adhd, hcp, X_hcp, X_tr, X_te, mesh_only=False):
     ``adhd``/``hcp``: (single-process components, (BCD, EMA-GEMM)
     launches) of phases 4 and 5; ``workdir`` holds phase 4's data
     (``adhd_X.npy``). On four cards the NCCL world runs every four-rank
-    leg, and ``mesh_only`` skips the gloo world then. Returns
-    '<backend>_<leg>' -> launches per rank."""
+    leg, and ``mesh_only`` skips the gloo world then. ``adhd_l1``: the
+    single-process fit of phase adhd70_l1 (components, (BCD, EMA-GEMM)
+    launches); where given, a gloo world of two ranks on card 0 fits it
+    on (2, 1), each rank solving half of each batch's codes by FISTA a
+    check a launch with the stop agreed over the ranks. Returns
+    '<backend>_<leg>' -> (BCD, EMA-GEMM, FISTA) launches per rank."""
     import scipy.sparse as sp
     import torch
     from modl_tpu_torch import DictFact, RecsysDictFact
@@ -1838,6 +2137,14 @@ def mesh_phase(workdir, adhd, hcp, X_hcp, X_tr, X_te, mesh_only=False):
     results = spawn(mesh_rank, 4, backend='gloo', device='cuda',
                     timeout=MESH_TIMEOUT, args=(four, 'cuda'))
     launches.update(mesh_legs(results, 'gloo', four))
+    if adhd_l1 is not None:
+        np.save(path('adhd_l1_D.npy'), adhd_l1[0])
+        l1 = [dict(leg('adhd70_l1_2x1', (2, 1), dict(ADHD, code_l1_ratio=1.0),
+                       'adhd_X.npy', 'adhd_l1_D.npy',
+                       (*adhd_l1[1], adhd_steps)), fista_min=adhd_steps)]
+        results = spawn(mesh_rank, 2, backend='gloo', device='cuda',
+                        timeout=MESH_TIMEOUT, args=(l1, 'cuda'))
+        launches.update(mesh_legs(results, 'gloo', l1))
     return launches
 
 
@@ -1885,7 +2192,7 @@ def main():
 
     from modl_tpu_torch import DictFact
     from modl_tpu_torch.benchmarks import launch_overhead
-    from modl_tpu_torch.ops import _build, bcd, ema_gemm
+    from modl_tpu_torch.ops import _build, bcd, ema_gemm, fista
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -1900,7 +2207,7 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     lib = _build.build()
-    for module in (bcd, ema_gemm, launch_overhead):
+    for module in (bcd, ema_gemm, launch_overhead, fista):
         module._kernel()
     phase('build', seconds=f'{time.perf_counter() - t0:.2f}',
           library=os.path.relpath(lib, REPO))
@@ -1929,6 +2236,8 @@ def main():
     adhd_ms, adhd_plain_ms, adhd_bound_ms, adhd_bound_by = results[0][1:]
     hcp_ms, hcp_plain_ms, hcp_bound_ms, _ = results[1][1:]
     barrier_phase(bcd._plan(*KERNEL_CASES[0][:2])[0])
+    # 3b. the FISTA kernel against its plain version
+    fista_results = fista_phase()
 
     # 4. ADHD-70 through DictFact.fit
     X, X_test = adhd_data()
@@ -1976,6 +2285,9 @@ def main():
                            f'(plain path), {rel_off} (gate off)')
     adhd_ref = (df.components_, (launches, ema_on))
     del df, off, plain
+
+    # 4a. DictFact's default codes (l1, FISTA) at ADHD-70 width
+    *adhd_l1, adhd_l1_fista = adhd70_l1_phase(X, X_test)
 
     # 4b. float64 data on the card; 4c. pickling and checkpoints
     dtype_launches = dtype_policy_phase(X, X_test, obj0)
@@ -2030,10 +2342,10 @@ def main():
     # 5c. the dp x feat mesh through torch.distributed
     try:
         mesh_launches = mesh_phase(mesh_dir, adhd_ref, hcp_ref, X, X_tr,
-                                   X_te)
+                                   X_te, adhd_l1=adhd_l1)
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
-    del adhd_ref, hcp_ref
+    del adhd_ref, hcp_ref, adhd_l1
 
     # 6. the EMA-GEMM kernel against its plain version
     from modl_tpu_torch.ops.sampler import binomial_len_max
@@ -2065,7 +2377,7 @@ def main():
     # 10-11. the recsys and image fits
     recsys_launches = recsys_ml10m(X_tr, X_te)
     del X_tr, X_te
-    image_launches = image_phase()
+    image_launches, image_fista = image_phase()
 
     # 12. the drivers: the HCP pipeline, the examples, an experiment
     workdir = os.path.join(REPO, 'build', 'chip_smoke_drivers')
@@ -2110,7 +2422,21 @@ def main():
         'replaces': 'benchmarks/pallas_call_overhead.py:31',
         'launches': lo_launches, 'max_abs_err': lo_err,
         'ms': lo_ms, 'plain_ms': lo_plain_ms, 'bound_ms': lo_bound_ms,
-        'bound_by': 'bytes', 'library_ms': None}]}), flush=True)
+        'bound_by': 'bytes', 'library_ms': None}, {
+        'name': 'fista_gram', 'route': 'cuda',
+        'source': 'modl_tpu_torch/csrc/fista_gram.cu',
+        'replaces': 'modl_tpu/ops/solvers.py:163',
+        'launches': image_fista,
+        'max_abs_err': max(r[0] for r in fista_results),
+        'ms': fista_results[0][1], 'plain_ms': fista_results[0][2],
+        'bound_ms': fista_results[0][3], 'bound_by': fista_results[0][4],
+        'library_ms': None,
+        **{f'{key}_{case[0]}': r[i] for case, r in zip(
+            FISTA_CASES[1:], fista_results[1:])
+           for i, key in ((1, 'ms'), (2, 'plain_ms'), (3, 'bound_ms'))},
+        'launches_adhd70_l1': adhd_l1_fista,
+        'launches_mesh': {leg: n[2] for leg, n in mesh_launches.items()
+                          if n[2]}}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

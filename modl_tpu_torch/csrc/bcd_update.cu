@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_barrier.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -151,34 +153,6 @@ __device__ __forceinline__ float2 sum_partials(const float* pa, int G) {
     if (MAXB) b = fmaxf(b, __ldcg(pa + G + g));
   }
   return make_float2(warp_sum(a), MAXB ? warp_max(b) : 0.f);
-}
-
-// Grid barrier on a counter of arrivals: the n-th exchange of a call
-// waits for n * gridDim.x of them, one a block. Arrive and wait are
-// split so that a block can work between them. The arriving thread's
-// release covers the writes that a warp or block barrier ordered before
-// it; thread 0's acquire, then the block's barrier, come before any read.
-// A wait that never completes traps (a launch error) after ~2^32 cycles
-// instead of hanging the card.
-__device__ __forceinline__ void arrive(unsigned* counter) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
-               :: "l"(counter) : "memory");
-}
-
-__device__ __forceinline__ void grid_wait(const unsigned* counter,
-                                          unsigned target) {
-  if (threadIdx.x == 0) {
-    unsigned seen;
-    long long t0 = -1;
-    for (;;) {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen) : "l"(counter) : "memory");
-      if (seen >= target) break;
-      if (t0 < 0) t0 = clock64();
-      else if (clock64() - t0 > (1ll << 32)) __trap();
-    }
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -603,22 +577,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 cudaError_t launch(const void* kern, int grid, size_t smem, void** args,
                    void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, THREADS, smem)) != cudaSuccess)
-    return err;
-  if (grid > per_sm * n_sm) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(THREADS), args,
-                                    smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cooperative(kern, grid, THREADS, smem, args, stream);
 }
 
 }  // namespace

@@ -2,8 +2,9 @@
 
 ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/modl_tpu_torch/`` beside the package (git ignores it), named by a
-hash of the sources and flags: a source change triggers a rebuild, an
-unchanged tree reuses the library. Each source compiles in its own
+hash of the sources, the headers they share (``csrc/*.cuh``) and flags:
+a source change triggers a rebuild, an unchanged tree reuses the
+library. Each source compiles in its own
 ``nvcc`` process, all started together, and one more links them. The
 sources expose plain C entry points, so the library needs no PyTorch
 headers and is loaded once with ``ctypes`` (:func:`load`); each
@@ -42,7 +43,7 @@ def sources():
 def library_path():
     """Path the library for the current sources is built to."""
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(SRC_DIR.glob('*.cuh')):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f'libmodl_tpu_torch_{h.hexdigest()[:16]}.so'

@@ -12,14 +12,16 @@ Counterpart of ``modl_tpu/ops/solvers.py`` (the reference's
   incremental ``H = Q w`` bookkeeping and the duality-gap stop; every
   sample runs at once and a per-row ``active`` mask freezes converged
   rows, which reproduces the sequential per-sample algorithm.
-- ``fista_gram``: the same problem by accelerated proximal gradient,
-  one batched (b, k) x (k, k) product per iteration.
+- ``fista_gram`` (``ops/fista.py``): the same problem by accelerated
+  proximal gradient, the Hopper kernel on the card.
 
-The convergence tests read one boolean back per sweep (CD) or per five
-iterations (FISTA); the ridge path the fit takes by default
-(``code_l1_ratio=0``) reads nothing back.
+CD reads one boolean back per sweep; FISTA reads nothing back on one
+card, and one agreed count per five iterations where a batch's rows are
+split over ranks; the ridge path reads nothing back.
 """
 import torch
+
+from .fista import _duality_gap, _soft_threshold, fista_gram
 
 __all__ = ["ridge_single_gram", "ridge_multi_gram", "enet_cd_gram",
            "fista_gram", "enet_regression_single_gram",
@@ -45,33 +47,6 @@ def ridge_multi_gram(G, Dx, alpha):
     k = G.shape[-1]
     Greg = G + alpha * torch.eye(k, dtype=G.dtype, device=G.device)
     return torch.cholesky_solve(Dx[..., None], _cholesky(Greg))[..., 0]
-
-
-def _soft_threshold(x, thresh):
-    return torch.sign(x) * torch.clamp(torch.abs(x) - thresh, min=0.0)
-
-
-def _duality_gap(w, H, q, y_norm2, l1_reg, l2_reg, positive):
-    """Per-row duality gap of the elastic-net Gram problem
-    (dict_fact_fast.pyx:388-426), with ``H = Q w``."""
-    q_dot_w = torch.sum(w * q, dim=-1)
-    XtA = q - H - l2_reg * w
-    if positive:
-        dual_norm = torch.max(XtA, dim=-1).values
-    else:
-        dual_norm = torch.max(torch.abs(XtA), dim=-1).values
-    R_norm2 = y_norm2 + torch.sum(w * H, dim=-1) - 2.0 * q_dot_w
-    over = dual_norm > l1_reg
-    scaling = torch.where(
-        over, l1_reg / torch.where(dual_norm != 0, dual_norm,
-                                   torch.ones_like(dual_norm)),
-        torch.ones_like(dual_norm))
-    gap = torch.where(over, 0.5 * (R_norm2 + R_norm2 * scaling ** 2),
-                      R_norm2)
-    return gap + (l1_reg * torch.sum(torch.abs(w), dim=-1)
-                  - scaling * y_norm2 + scaling * q_dot_w
-                  + 0.5 * l2_reg * (1.0 + scaling ** 2)
-                  * torch.sum(w * w, dim=-1))
 
 
 def enet_cd_gram(w0, Q, q, y_norm2, l1_reg, l2_reg, positive, max_iter,
@@ -129,68 +104,6 @@ def enet_cd_gram(w0, Q, q, y_norm2, l1_reg, l2_reg, positive, max_iter,
     return w
 
 
-def fista_gram(w0, Q, q, y_norm2, l1_reg, l2_reg, positive, max_iter,
-               tol, agree=None):
-    """Batched FISTA on the Gram formulation.
-
-    Solves the problem of :func:`enet_cd_gram`; step 1/L with L the top
-    eigenvalue of Q (16 power iterations) plus l2_reg, with 1% margin.
-    The gap test runs every 5 iterations; the minimiser agrees with CD
-    up to the solver tolerance (the problem is convex). Every row runs
-    until all have converged; where the batch's rows are split over
-    ranks, ``agree`` sums a 0-d count of unconverged rows over them, so
-    that every rank stops where the whole batch would.
-    """
-    b, k = q.shape
-    shared = Q.ndim == 2
-    dtype = q.dtype
-    gap_tol = tol * y_norm2
-    check_every = 5
-
-    if shared:
-        def matvec(W):
-            return W @ Q
-        v = torch.ones((1, k), dtype=dtype, device=q.device)
-    else:
-        def matvec(W):
-            return torch.einsum('bij,bj->bi', Q, W)
-        v = torch.ones((b, k), dtype=dtype, device=q.device)
-
-    for _ in range(16):
-        v = matvec(v)
-        v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
-                            min=1e-30)
-    L = (torch.sum(v * matvec(v), dim=-1)
-         / torch.clamp(torch.sum(v * v, dim=-1), min=1e-30))
-    L = (torch.clamp(L, min=1e-12) + l2_reg) * 1.01
-    inv_L = (1.0 / L)[:, None]
-
-    def prox(z):
-        out = _soft_threshold(z, l1_reg * inv_L)
-        if positive:
-            out = torch.clamp(out, min=0.0)
-        return out
-
-    w = prox(w0)
-    z = w
-    t = 1.0
-    for it in range(1, max_iter + 1):
-        grad = matvec(z) - q + l2_reg * z
-        w_new = prox(z - grad * inv_L)
-        t_new = 0.5 * (1.0 + (1.0 + 4.0 * t * t) ** 0.5)
-        z = w_new + ((t - 1.0) / t_new) * (w_new - w)
-        w, t = w_new, t_new
-        if it % check_every == 0:
-            gap = _duality_gap(w, matvec(w), q, y_norm2, l1_reg, l2_reg,
-                               positive)
-            left = torch.sum(~(gap < gap_tol))
-            if agree is not None:
-                left = agree(left)
-            if int(left) == 0:
-                break
-    return w
-
-
 def enet_regression_single_gram(w0, G, Dx, X, l1_ratio, alpha, positive,
                                 tol, max_iter, solver='cd', y_norm2=None,
                                 agree=None):
@@ -221,6 +134,8 @@ def _enet_dispatch(w0, G, Dx, X, l1_ratio, alpha, positive, tol, max_iter,
         y_norm2 = torch.sum(X * X, dim=-1)
     l1_reg, l2_reg = alpha * l1_ratio, alpha * (1.0 - l1_ratio)
     if solver == 'fista':
+        # the kernel takes contiguous operands only
+        w0, G, Dx, y_norm2 = (t.contiguous() for t in (w0, G, Dx, y_norm2))
         return fista_gram(w0, G, Dx, y_norm2, l1_reg, l2_reg, positive,
                           20 * max_iter, tol, agree=agree)
     return enet_cd_gram(w0, G, Dx, y_norm2, l1_reg, l2_reg, positive,

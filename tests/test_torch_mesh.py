@@ -18,7 +18,8 @@ seed and handed to both.
   ``transform`` at rtol 1e-8; the odd batch; windowed float32 at rtol
   1e-5, atol 1e-6 and the (2, 4) gather fallback; the 'average'
   aggregators with ``G_avg`` split over dp; ``average_offload`` on a
-  mesh runs resident;
+  mesh runs resident; l1 codes by FISTA with the batch split over dp
+  (its stop agreed over the ranks);
 - pickles and ``save_state`` of a mesh fit load as whole single-process
   state; a rank whose draws differ raises on every rank, and a failing
   rank does not hang its world.
@@ -62,6 +63,8 @@ WINDOW_KW = dict(n_components=4, reduction=4, code_alpha=1e-3,
                  dtype=np.float32)
 WIDE_KW = dict(WINDOW_KW, reduction=12)
 AVG_KW = dict(GATHER_KW, Dx_agg='average', G_agg='average')
+FISTA_KW = dict(GATHER_KW, code_alpha=0.5, code_l1_ratio=1.0,
+                code_solver='fista')
 
 
 def _cfg_fields(cfg):
@@ -210,6 +213,7 @@ def world(tmp_path_factory):
                          X=planted(192, 1600, k=4, seed=3,
                                    dtype=np.float32))
     cases['average'] = dict(kind='fit', shape=(4, 2), kw=AVG_KW, X=X_fit)
+    cases['fista'] = dict(kind='fit', shape=(2, 4), kw=FISTA_KW, X=X_fit)
     cases['offload'] = dict(kind='fit', shape=(4, 2), X=X_fit,
                             kw=dict(AVG_KW, average_offload=True))
     results = spawn(ranks.dict_fact_world, WORLD, backend='gloo', device='cpu',
@@ -378,6 +382,21 @@ def test_dictfact_mesh_average_methods(world):
                        ('Dx_average', ref.Dx_average_)):
         np.testing.assert_allclose(got[name], want, rtol=1e-10, atol=1e-12,
                                    err_msg=name)
+
+
+def test_dictfact_mesh_fista_codes_match_single(world):
+    """l1 codes by FISTA with the batch's rows split over dp = 2: every
+    solve runs a check a call and stops where the whole batch does, so
+    the fit is the single-process fit's (which solves in one loop)."""
+    got = world['rank0']['fista']
+    X = world['inputs']['X_fit']
+    assert got['split_solves'] == 2 * 120 // 24
+    single = DictFact(device='cpu', **FISTA_KW).fit(X)
+    np.testing.assert_allclose(got['components'], single.components_,
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(got['transform'], single.transform(X),
+                               rtol=1e-8, atol=1e-10)
+    assert np.count_nonzero(got['transform']) < got['transform'].size
 
 
 def test_average_offload_on_a_mesh_runs_resident(world):

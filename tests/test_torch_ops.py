@@ -106,20 +106,26 @@ def test_enet_cd_gram_matches_jax(positive, shared):
     np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-9)
 
 
-@pytest.mark.parametrize('positive', [False, True])
-def test_fista_gram_matches_jax(positive):
-    """FISTA stops on the duality gap reaching ``tol * ||x||^2``, so two
-    runs agree to the solver tolerance: codes within 1e-3 of each other
-    (tol 1e-6 here), not to roundoff."""
+@pytest.mark.parametrize('positive,shared', [
+    (False, True), (True, True), (False, False), (True, False)],
+    ids=['False', 'True', 'False-per_row', 'True-per_row'])
+def test_fista_gram_matches_jax(positive, shared):
+    """The same iterations, power iteration and stop as modl_tpu's: codes
+    at float64 roundoff (1e-12; the readings are ~1e-16), with a shared
+    Gram and with per-row Grams. CD stops on its own test, so FISTA and
+    CD agree to the solver tolerance: within 1e-3 (tol 1e-6 here)."""
     X, D, G, Dx = _problem(3)
+    Q = G if shared else np.stack([G + 0.1 * i * np.eye(6)
+                                   for i in range(12)])
     w0 = np.zeros_like(Dx)
     y2 = np.sum(X * X, axis=1)
     args = (0.5, 0.1, positive, 2000, 1e-6)
-    got = solvers.fista_gram(T(w0), T(G), T(Dx), T(y2), *args)
-    want = jsolvers.fista_gram(jnp.asarray(w0), jnp.asarray(G),
+    got = solvers.fista_gram(T(w0), T(Q), T(Dx), T(y2), *args)
+    want = jsolvers.fista_gram(jnp.asarray(w0), jnp.asarray(Q),
                                jnp.asarray(Dx), jnp.asarray(y2), *args)
-    np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-3)
-    cd = solvers.enet_cd_gram(T(w0), T(G), T(Dx), T(y2), 0.5, 0.1,
+    np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=0,
+                               atol=1e-12)
+    cd = solvers.enet_cd_gram(T(w0), T(Q), T(Dx), T(y2), 0.5, 0.1,
                               positive, 1000, 1e-10)
     np.testing.assert_allclose(to_np(got), to_np(cd), atol=1e-3)
 

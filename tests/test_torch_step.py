@@ -2,9 +2,9 @@
 
 - float64, plain path (``use_kernel=False`` vs ``use_pallas=False``):
   every aggregator, both dictionary balls, ``comp_pos``, ridge and l1
-  codes, and ``sgd``, at atol 1e-9 (the bar of
-  tests/test_reference_parity.py); windowed steps at the head, in the
-  interior and wrapping, under ``rand_size``;
+  codes (CD, and FISTA under every aggregator), and ``sgd``, at atol
+  1e-9 (the bar of tests/test_reference_parity.py); windowed steps at
+  the head, in the interior and wrapping, under ``rand_size``;
 - float32, kernel path (the kernel's plain version on the CPU vs the
   Pallas kernel in interpret mode), 3 steps, rtol 1e-5 / atol 1e-6
   (tests/test_bcd_pallas.py), whole-k and through the block driver;
@@ -70,6 +70,23 @@ def test_step_matches_jax_float64(agg, comp_l1, comp_pos):
                      Dx_agg=agg, G_agg=agg, batch_size=12, random_state=0)
     df.prepare(n_samples=60, X=X)
     st, st_jax = _run_both(df, X, 6, seed=0)
+    assert st.n_iter == int(st_jax.n_iter)
+    assert_states_close(st, st_jax, FIELDS + ('sample_n_iter',))
+
+
+@pytest.mark.parametrize('agg', ['masked', 'full', 'average'])
+def test_fista_step_matches_jax_float64(agg):
+    """l1 codes by FISTA, the solver DictFact takes on the card: the
+    port's plain FISTA against modl_tpu's while_loop, with a shared Gram
+    ('masked', 'full') and per-sample Grams ('average')."""
+    X = np.random.RandomState(5).randn(60, 24)
+    df = JaxDictFact(n_components=5, reduction=2, code_alpha=0.1,
+                     code_l1_ratio=1.0, comp_l1_ratio=1.0,
+                     code_solver='fista', tol=1e-3, Dx_agg=agg, G_agg=agg,
+                     batch_size=12, random_state=0)
+    df.prepare(n_samples=60, X=X)
+    assert port_config(df).code_solver == 'fista'
+    st, st_jax = _run_both(df, X, 6, seed=5)
     assert st.n_iter == int(st_jax.n_iter)
     assert_states_close(st, st_jax, FIELDS + ('sample_n_iter',))
 

@@ -16,7 +16,7 @@ from modl_tpu_torch import DictFact, RecsysDictFact, convert
 from modl_tpu_torch.decomposition import _step
 from modl_tpu_torch.decomposition import dict_fact as dict_fact_mod
 from modl_tpu_torch.decomposition import recsys as recsys_mod
-from modl_tpu_torch.ops import bcd
+from modl_tpu_torch.ops import bcd, fista
 from modl_tpu_torch.parallel import (COLLECTIVES, make_mesh, shard_batch,
                                      shard_state, unshard_state)
 from modl_tpu_torch.utils.checkpoint import save_state
@@ -67,11 +67,17 @@ def fit(case):
     saved_host_zeros = dict_fact_mod.host_zeros
     dict_fact_mod.host_zeros = (lambda *a: (host_allocs.append(a[0]),
                                             saved_host_zeros(*a))[1])
+    split_solves = []   # FISTA solves run a check a call (``agree``)
+    saved_drive = fista._drive_checks
+    fista._drive_checks = (lambda *a: (split_solves.append(1),
+                                       saved_drive(*a))[1])
     try:
         df = DictFact(mesh=mesh, device='cpu', **case['kw']).fit(case['X'])
     finally:
         dict_fact_mod.host_zeros = saved_host_zeros
+        fista._drive_checks = saved_drive
     out = dict(components=df.components_, windowed=df._cfg.windowed,
+               split_solves=len(split_solves),
                offload=df._cfg.average_offload, n_iter=df.n_iter_,
                local_D=tuple(df._state.D.shape),
                transform=df.transform(case['X']),
