@@ -15,14 +15,22 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    and a second launch held bitwise equal to the first; then the grid
    barrier alone (cooperative groups' and the kernel's own), in us;
    then fista: the FISTA kernel against its plain version at the image
-   fit's solve (200 x 128, a shared Gram staged in shared memory), its
-   NMF, per-row Grams (``G_agg='average'``), ADHD-70's width with an
-   elastic-net code (100 x 70) and k=1,024 (Q read through L2): codes at
-   200 iterations within 1e-4 of max |w|, the iterations at the solver's
-   tol equal or one check apart and the batch objective within 1e-5, a
+   fit's solve (200 x 128, a shared Gram held in registers), its NMF,
+   per-row Grams (``G_agg='average'``), ADHD-70's width with an
+   elastic-net code (100 x 70), k=1,024 (Q read through L2), the image
+   score's and transform's row counts, and shapes that launch every
+   other instantiation of the kernel (``FISTA_CASES``): codes at 200
+   iterations within 3e-5 of max |w|, the iterations at the solver's tol
+   equal or one check apart and the batch objective within 1e-5, a
    second launch and half the batch bitwise equal, the check-a-launch
    driver bitwise equal to the one-launch solve, which also runs with
-   host reads forbidden; times, bounds and iterations;
+   host reads forbidden; the path each case takes (registers, smem or
+   l2), its instantiation and its rows a thread, times, bounds and
+   iterations; before the cases, each FISTA kernel instantiation's
+   registers, stack frame and spill bytes from the build's ptxas report
+   (the phase fails unless the cases launch every instantiation built,
+   and the run fails, after phase 12, if the main path launched one that
+   no case held against the plain version);
 4. adhd70: ``DictFact(...).fit(X)`` at the ADHD-70 configuration of
    ``bench.py`` (k=70, 2,000 x 200,000 planted data, one epoch of 20
    steps): BCD and EMA-GEMM launches counted on the main path (one
@@ -118,8 +126,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    gathered buffer by buffer), one epoch: one BCD and one FISTA launch a
    step, every solve with host reads forbidden, held-out score below the
    initial dictionary's, agreement with a refit through both kernels'
-   plain versions on a 20,000-patch subset, patches/s; then a short NMF
-   fit (20,000 patches) with non-negative components and codes;
+   plain versions on a 20,000-patch subset, patches/s and the steps'
+   seconds; the card's idle share and the FISTA and BCD kernels' device
+   time over 70 steady steps of the subset fit (``torch.profiler``
+   through ``utils/profiling.py``, whose per-op host cost it counts in
+   the window's wall clock); then a short NMF fit (20,000 patches) with
+   non-negative components and codes;
 12. drivers: the port's drivers on the card with ``MODL_OUTPUT`` under
    ``build/``: the HCP pipeline (``exps.hcp.unmask_hcp`` on 2 Gaussian
    volumes of 61 x 73 x 61 x 400 and the 200,000-voxel mask, then
@@ -150,6 +162,22 @@ result where no CUDA device is visible.
 ``python3 chip_smoke.py --mesh-only`` runs phases 1, 2, the single-
 process ADHD-70 and HCP-1024 fits and phase mesh alone (on a machine
 with four cards, its legs over NCCL across them), then the device line.
+
+``python3 chip_smoke.py --ab-fista TREE [TREE ...]`` times the FISTA
+kernel of several checkouts in turns on one card (each TREE the root of
+one, for example a ``git archive`` of another commit unpacked under
+``build/``; give them as A B B A so that a drift of the card hits both
+alike): for each TREE, in the order given, a fresh process imports that
+checkout's ``modl_tpu_torch`` (building its kernels) and solves with its
+``ops.fista.fista_gram`` on this file's inputs: every ``FISTA_CASES``
+shape at the solver's tol, then the image shape at the fixed iteration
+counts of ``AB_SWEEP`` with tol 0 (0: the power iteration, prox and
+copies alone; 4: iterations without a check; then a check every 5
+iterations). A line a solve: the tree, the case, the kernel's mean ms
+(``cuda_ms``) and the iterations it ended at; a line a leg: the median
+host microseconds of the kernel's entry point (its ctypes call, which
+returns without waiting for the card) at the image shape, and how many
+cases give codes bitwise equal to each tree's first leg.
 """
 import contextlib
 import io
@@ -207,10 +235,16 @@ HBM_BPS, F32_FLOPS, TF32X3_FLOPS = 3.35e12, 67e12, 495e12 / 3
 # k=1,024, whose shared Q is read from L2; then the image fit's
 # transform and score of its 2,000 test patches on the full Gram (tiles
 # of 8 rows, 250 tiles over the blocks: state loaded and stored each
-# check period, four rows a warp in the product), 500 rows (tiles of 4:
-# two rows a warp), per-row Grams over 1,200 rows (tiles of 3, looped),
-# at k=200 (staged one row a tile, whatever the batch) and at k=256
-# (read from device memory)
+# check period, four rows a thread in the product), 500 rows (two rows a
+# thread), per-row Grams over 1,200 rows (tiles of 3, looped), at k=200
+# (staged one row a tile, whatever the batch) and at k=256 (read from
+# device memory); then the register path's other instantiations
+# (fista_kernel_registers<NC, R>: NC = ceil(k / 32) warps a row, R rows a
+# thread): examples/stability_selection.py's solve (k=16 on 64 features,
+# reduction 2, a batch of 50) and a transform of 2,000 and 4,000 rows at
+# its k, k=64 at a batch of 200 and over 1,000 and 2,000 rows, ADHD-70's
+# width over 500 and 2,000 rows (the l1 fit's transform and score); and
+# a shared Q staged in shared memory (k=200)
 FISTA_CASES = [('image', 200, 128, 256, 8, True, 1.0, False),
                ('nmf', 200, 128, 256, 8, True, 1.0, True),
                ('average', 200, 128, 256, 8, False, 1.0, False),
@@ -220,7 +254,16 @@ FISTA_CASES = [('image', 200, 128, 256, 8, True, 1.0, False),
                ('rows500', 500, 128, 256, 1, True, 1.0, False),
                ('average_b1200', 1200, 128, 256, 8, False, 1.0, False),
                ('average_k200', 200, 200, 1600, 8, False, 1.0, False),
-               ('average_k256', 200, 256, 2048, 8, False, 1.0, False)]
+               ('average_k256', 200, 256, 2048, 8, False, 1.0, False),
+               ('stability', 50, 16, 64, 2, True, 1.0, False),
+               ('k16_b2000', 2000, 16, 64, 1, True, 1.0, False),
+               ('k16_b4000', 4000, 16, 64, 1, True, 1.0, False),
+               ('k64', 200, 64, 512, 8, True, 1.0, False),
+               ('k64_b1000', 1000, 64, 512, 1, True, 1.0, False),
+               ('k64_b2000', 2000, 64, 512, 1, True, 1.0, False),
+               ('adhd70_b500', 500, 70, 2400, 1, True, 1.0, False),
+               ('adhd70_b2000', 2000, 70, 2400, 1, True, 1.0, False),
+               ('shared_k200', 200, 200, 1600, 8, True, 1.0, False)]
 FISTA_ALPHA = 0.08          # exps/exp_decompose_images.py's alpha
 FISTA_FIXED = 200           # iterations of the fixed-count check (tol 0)
 # DictFact's tol, and 20 x its max_iter (ops/solvers.py::_enet_dispatch)
@@ -233,6 +276,9 @@ FISTA_RTOL = 3e-5
 FISTA_OBJ_RTOL = 1e-5
 # grid barriers a call of the barrier probe times
 BARRIERS = 2000
+# clock cycles the card sleeps before a timed run of calls (~5 ms at the
+# H100's ~1.98 GHz), time for the host to queue them
+QUEUE_CYCLES = 10_000_000
 # both run the same sequential f32 recurrence with sums taken in another
 # order; the l1 Newton branches on sums, so agreement is held at a
 # relative 1e-4 of the rows' scale rather than at roundoff
@@ -282,9 +328,14 @@ FMRI_NIFTI = dict(method='masked', n_components=70, reduction=12,
                   detrend=False, random_state=0)
 NIFTI_EPOCHS = 2
 NIFTI_RTOL = 1e-5
+# the image subset fit's steps profiled for the idle share (of its 100)
+IMAGE_WINDOW = (20, 90)
 # the HCP driver pipeline's volumes: two of 400 frames (two full batches
 # of 200 a record, so that a deferred-B segment ends in each)
 HCP_DRIVER_VOLUMES, HCP_DRIVER_FRAMES = 2, 400
+# --ab-fista: launches timed a solve, the image shape's fixed iteration
+# counts, host-timed launches of the entry point a leg
+AB_REPS, AB_SWEEP, AB_HOST_LAUNCHES = 20, (0, 4, 5, 50, 100, 200), 200
 # rounds of on, off, off, on fits in the ADHD-70 leg's gate A/B: the
 # kernel's ~1 ms over 6 segment ends sits inside one fit's spread (~32
 # ms +- 1.5); the HCP-1024 leg's ~15 ms stands out in one round
@@ -297,9 +348,15 @@ def phase(label, **fields):
 
 
 def cuda_ms(fn, reps):
+    """Mean ms of ``fn()`` over ``reps`` calls on the card: CUDA events
+    around the calls, which the host queues while the card sleeps
+    ``QUEUE_CYCLES`` first, so that a call shorter than its host issue
+    time is timed by the card and not by the host (a call that reads a
+    value back waits for the card anyway)."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -526,6 +583,33 @@ def fista_bound(b, k, shared, iters):
                                        else 'operations')
 
 
+def fista_instance(k, shared, plan):
+    """The ``fista_gram.cu`` instantiation a :class:`fista.Plan` launches,
+    named as the ptxas report names it: ``fista_kernel_registers<NC,R>``
+    on the register path (NC = ceil(k / 32) warps a row, R rows a
+    thread), else ``fista_kernel<SHARED,QSMEM>``."""
+    if plan.path == 'registers':
+        return f'fista_kernel_registers<{-(-k // 32)},{plan.rows_a_thread}>'
+    return (f'fista_kernel<{str(bool(shared)).lower()},'
+            f'{str(plan.q_smem).lower()}>')
+
+
+def record_fista_instances():
+    """Returns a set to which, from now on, the instantiation of every
+    FISTA solve planned in this process is added (``fista._plan`` is
+    called once a solve)."""
+    from modl_tpu_torch.ops import fista
+    seen, plan = set(), fista._plan
+
+    def recorded(b, k, shared, sms):
+        p = plan(b, k, shared, sms)
+        seen.add(fista_instance(k, shared, p))
+        return p
+
+    fista._plan = recorded
+    return seen
+
+
 def fista_case(label, b, k, n, reduction, shared, l1_ratio, positive, seed):
     """The FISTA kernel against its plain version at one shape: codes at
     a fixed count (tol 0), the iterations and batch objective at the
@@ -585,13 +669,16 @@ def fista_case(label, b, k, n, reduction, shared, l1_ratio, positive, seed):
         plain_ms = cuda_ms(lambda: fista.fista_gram_reference(*solve), 2)
     bound_ms, bound_by = fista_bound(b, k, shared, iters)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rt, grid, _, q_smem = fista._plan(b, k, shared, sms)
+    plan = fista._plan(b, k, shared, sms)
     ok = (finite and err <= FISTA_RTOL * scale and bitwise and rows
           and chunks and launches == 1
           and abs(iters - iters_plain) <= fista.CHECK_EVERY
           and obj_rel <= FISTA_OBJ_RTOL)
     phase('fista', case=label, b=b, k=k, Q='shared' if shared else 'per_row',
-          rows_a_tile=rt, blocks=grid, q_smem=q_smem, l1_ratio=l1_ratio,
+          path=plan.path, kernel=fista_instance(k, shared, plan),
+          rows_a_tile=plan.rt,
+          rows_a_thread=plan.rows_a_thread, blocks=plan.grid,
+          l1_ratio=l1_ratio,
           positive=positive, fixed_iterations=iters_fixed,
           max_abs_err=f'{err:.3e}', rel_err=f'{err / scale:.3e}',
           iterations=iters, iterations_plain=iters_plain,
@@ -605,14 +692,64 @@ def fista_case(label, b, k, n, reduction, shared, l1_ratio, positive, seed):
     if not ok:
         raise RuntimeError(f'fista: the kernel disagrees with its plain '
                            f'version or with itself at {label}')
-    return err, ms, plain_ms, bound_ms, bound_by
+    return err, ms, plain_ms, bound_ms, bound_by, fista_instance(k, shared,
+                                                                 plan)
+
+
+def ptxas_report(log):
+    """[(kernel, registers, stack frame bytes, spill store bytes, spill
+    load bytes)] of each entry function in an ``nvcc -Xptxas -v`` log,
+    names demangled where ``c++filt`` is on the machine."""
+    import re
+    rows = []
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            if not rows or rows[-1][0] != name:
+                rows.append([name, None, 0, 0, 0])
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and rows:
+            rows[-1][2:] = [int(v) for v in m.groups()]
+        m = re.search(r'Used (\d+) registers', line)
+        if m and rows:
+            rows[-1][1] = int(m.group(1))
+    try:
+        names = subprocess.run(['c++filt'], input='\n'.join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = [r[0] for r in rows]
+    # 'void (anonymous namespace)::f<1, 2>((anonymous namespace)::Params)'
+    short = [re.sub(r'\(.*', '', n.replace('(anonymous namespace)::', ''))
+             .split(' ', 1)[-1] for n in names]
+    return [(s, *r[1:]) for s, r in zip(short, rows)]
 
 
 def fista_phase():
-    """Phase fista: every FISTA_CASES shape; returns the cases' results
-    (the image case first)."""
-    return [fista_case(*case, seed=100 + i)
-            for i, case in enumerate(FISTA_CASES)]
+    """Phase fista: the registers and spills of every FISTA kernel
+    instantiation (the build's ptxas report), then every FISTA_CASES
+    shape; fails unless the cases launch every instantiation built.
+    Returns the cases' results (the image case first)."""
+    from modl_tpu_torch.ops import _build
+    log = _build.library_path().with_suffix('.log').read_text()
+    built = set()
+    for name, regs, stack, stores, loads in ptxas_report(log):
+        if 'fista_kernel' in name:
+            built.add(name.replace(' ', ''))
+            phase('fista_ptxas', kernel=name.replace(' ', ''),
+                  registers=regs, stack_frame_bytes=stack,
+                  spill_store_bytes=stores, spill_load_bytes=loads)
+    results = [fista_case(*case, seed=100 + i)
+               for i, case in enumerate(FISTA_CASES)]
+    missed = built - {r[5] for r in results}
+    if not built or missed:
+        raise RuntimeError(f'fista: no case launches {sorted(missed)} '
+                           f'(built: {sorted(built)})')
+    return results
 
 
 def barrier_phase(grid):
@@ -1406,6 +1543,44 @@ def recsys_ml10m(X_tr, X_te):
     return launches
 
 
+class ProfiledSteps:
+    """An ImageDictFact callback (called before each step) that profiles
+    the steps ``first`` to ``last - 1`` of a fit through
+    ``utils/profiling.py::device_trace`` into ``logdir``, with the card
+    synchronised at both ends; ``summary()`` reads the window after the
+    fit."""
+
+    def __init__(self, first, last, logdir):
+        self.first, self.last, self.logdir = first, last, logdir
+        self.calls = 0
+        self.stack = contextlib.ExitStack()
+
+    def __call__(self, est):
+        import torch
+        from modl_tpu_torch.utils.profiling import device_trace
+        if self.calls in (self.first, self.last):
+            torch.cuda.synchronize()
+            if self.calls == self.first:
+                self.prof = self.stack.enter_context(device_trace(
+                    self.logdir))
+                self.t0 = time.perf_counter()
+            else:
+                self.wall = time.perf_counter() - self.t0
+                self.stack.close()
+        self.calls += 1
+
+    def summary(self):
+        """(wall s, device busy s, host reads, {kernel: (device ms,
+        launches)}) of the window, for the FISTA and BCD kernels."""
+        from modl_tpu_torch.utils.profiling import device_summary
+        busy, _, reads, device = device_summary(self.prof)
+        kernels = {name: (sum(e.self_device_time_total for e in device
+                              if name in e.key) / 1e3,
+                          sum(e.count for e in device if name in e.key))
+                   for name in ('fista_kernel', 'bcd_kernel')}
+        return self.wall, busy, reads, kernels
+
+
 def image_phase():
     """exps/exp_decompose_images.py's configuration through
     ImageDictFact.fit; returns the BCD and FISTA launches of the main
@@ -1436,7 +1611,11 @@ def image_phase():
     steps = image_steps(n_rows, est)
     cfg = est.dict_fact_._cfg
     sub = dict(IMAGE, n_epochs=1, max_patches=IMAGE_SUBSET, device='cuda')
-    kernel_sub = ImageDictFact(**sub).fit(image)
+    # the subset fit's steady steps under the profiler
+    window = ProfiledSteps(*IMAGE_WINDOW, os.path.join(
+        REPO, 'build', 'chip_smoke_trace', 'image'))
+    kernel_sub = ImageDictFact(**sub, callback=window).fit(image)
+    window_s, busy, window_reads, window_kernels = window.summary()
     bcd.LAUNCHES = fista.LAUNCHES = 0
     plain_sub = ImageDictFact(**sub)
     with plain_bcd(), plain_fista():
@@ -1465,7 +1644,16 @@ def image_phase():
           fit_patches_per_s=f'{n_rows / seconds:.1f}',
           compute_patches_per_s=f'{n_rows / est.time_:.1f}',
           subset_fit_s=f'{plain_seconds:.4f}',
-          nmf_fit_s=f'{nmf_seconds:.4f}', fit_s=f'{seconds:.4f}')
+          nmf_fit_s=f'{nmf_seconds:.4f}', fit_s=f'{seconds:.4f}',
+          steps_s=f'{est.time_:.4f}',
+          window_steps=IMAGE_WINDOW[1] - IMAGE_WINDOW[0],
+          window_s=f'{window_s:.4f}', window_device_busy_s=f'{busy:.4f}',
+          idle_share=f'{1 - busy / window_s:.4f}',
+          window_host_reads=window_reads,
+          **{f'window_{name}_ms': f'{ms:.3f}'
+             for name, (ms, _) in window_kernels.items()},
+          **{f'window_{name}_launches': n
+             for name, (_, n) in window_kernels.items()})
     nmf_steps = image_steps(IMAGE_SUBSET, nmf)
     if ((launches, fista_launches, nmf_launches, nmf_fista, plain_launches)
             != (steps, steps, nmf_steps, nmf_steps, 0)):
@@ -2182,6 +2370,87 @@ def mesh_only_main(name):
     return 0
 
 
+def ab_fista_leg(tree, index):
+    """One leg of ``--ab-fista``: ``tree``'s FISTA kernel on every case;
+    saves the codes under build/ab_fista."""
+    sys.path.insert(0, tree)
+    import statistics
+
+    import torch
+    from modl_tpu_torch.ops import fista
+    from modl_tpu_torch.ops.precision import full_f32
+    name = os.path.basename(tree)
+    solves = []
+    for i, (label, b, k, n, reduction, shared, l1_ratio,
+            positive) in enumerate(FISTA_CASES):
+        g = torch.Generator(device='cuda').manual_seed(100 + i)
+        ops = fista_inputs(b, k, n, reduction, shared, g)
+        params = (FISTA_ALPHA * l1_ratio, FISTA_ALPHA * (1.0 - l1_ratio),
+                  positive)
+        solves.append((label, ops + params + (FISTA_MAX_ITER, FISTA_TOL)))
+        if i == 0:
+            solves += [(f'{label}_fixed{m}', ops + params + (m, 0.0))
+                       for m in AB_SWEEP]
+    codes = {}
+    with full_f32():
+        for label, args in solves:
+            codes[label] = fista.fista_gram(*args).cpu()
+            iters = fista.last_iterations()
+            ms = cuda_ms(lambda: fista.fista_gram(*args), AB_REPS)
+            print(f'tree={name} leg={index} case={label} ms={ms:.4f} '
+                  f'iterations={iters}', flush=True)
+        # the entry point's host time, the card kept busy by the queue
+        entry, seconds = fista._kernel(), []
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            err = entry(*args)
+            seconds.append(time.perf_counter() - t0)
+            return err
+
+        fista._kernel = lambda: timed
+        torch.cuda._sleep(QUEUE_CYCLES)
+        for _ in range(AB_HOST_LAUNCHES):
+            fista.fista_gram(*solves[0][1])
+        torch.cuda.synchronize()
+    print(f'tree={name} leg={index} case={solves[0][0]} '
+          f'launch_host_us={1e6 * statistics.median(seconds):.2f}',
+          flush=True)
+    out = os.path.join(REPO, 'build', 'ab_fista')
+    os.makedirs(out, exist_ok=True)
+    torch.save(codes, os.path.join(out, f'leg{index}.pt'))
+    return 0
+
+
+def ab_fista(trees):
+    """``--ab-fista``: a leg a tree, in turns, each its own process; then
+    the codes of each leg against each tree's first leg."""
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device visible', file=sys.stderr)
+        return 1
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    trees = [os.path.abspath(tree) for tree in trees]
+    for index, tree in enumerate(trees):
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        '--ab-fista-leg', tree, str(index)], cwd=tree,
+                       check=True)
+    names = [os.path.basename(tree) for tree in trees]
+    legs = [torch.load(os.path.join(REPO, 'build', 'ab_fista',
+                                    f'leg{i}.pt')) for i in range(len(trees))]
+    first = {name: legs[names.index(name)] for name in names}
+    for index, (name, codes) in enumerate(zip(names, legs)):
+        equal = {other: sum(torch.equal(codes[label], ref[label])
+                            for label in codes)
+                 for other, ref in first.items()}
+        print(f'tree={name} leg={index} cases={len(codes)} bitwise_equal='
+              + ','.join(f'{other}:{n}' for other, n in equal.items()),
+              flush=True)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2238,6 +2507,7 @@ def main():
     barrier_phase(bcd._plan(*KERNEL_CASES[0][:2])[0])
     # 3b. the FISTA kernel against its plain version
     fista_results = fista_phase()
+    main_fista = record_fista_instances()
 
     # 4. ADHD-70 through DictFact.fit
     X, X_test = adhd_data()
@@ -2387,6 +2657,17 @@ def main():
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # every FISTA instantiation the main path ran was held against the
+    # plain version in phase fista (the mesh ranks' solves: their own
+    # processes, at shapes of the single fits)
+    unchecked = main_fista - {r[5] for r in fista_results}
+    phase('fista_coverage', main_path=','.join(sorted(main_fista)),
+          unchecked=','.join(sorted(unchecked)) or None)
+    if unchecked:
+        raise RuntimeError(f'fista: the main path launched '
+                           f'{sorted(unchecked)}, which phase fista does '
+                           'not hold against the plain version')
+
     print(smi, flush=True)          # the card again, near the end
     print(json.dumps({'kernels': [{
         'name': 'bcd_update', 'route': 'cuda',
@@ -2444,4 +2725,9 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--ab-fista-leg']:
+        sys.exit(ab_fista_leg(os.path.abspath(sys.argv[2]),
+                              int(sys.argv[3])))
+    if sys.argv[1:2] == ['--ab-fista'] and sys.argv[2:]:
+        sys.exit(ab_fista(sys.argv[2:]))
     sys.exit(main())

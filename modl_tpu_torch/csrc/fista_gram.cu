@@ -20,24 +20,40 @@
 // k = 128 and ~130 iterations ~1 GFLOP, ~15 us. The rows are independent
 // but the iterations sequential, and one iteration is only b k^2 = 3.3 M
 // multiply-adds spread over the card: the latency of an iteration on a
-// block's rows (its reads of Q from shared memory, one per multiply-add
-// where a block holds one or two rows) and of a grid barrier a check
-// bound the kernel, not its flops (it runs at ~4% of the bound at the
-// image shape; PERF.md).
+// block's rows and of a grid barrier a check bound the kernel, not its
+// flops. Where Q is read from shared memory once a multiply-add (one or
+// two rows a block), those reads set the pace of an iteration (~2.4 us
+// at the image shape); the register path below reads Q from registers.
 //
 // Design. The TPU keeps the loop on the device inside the jitted step;
 // here one launch runs it whole and reads nothing back:
 //   grid     one block per multiprocessor (fewer for a small batch), each
-//            owning tiles of rt <= 8 consecutive rows (ops/fista.py::
-//            _plan spreads the batch over the card); a tile's z, w, q
-//            and product live in shared memory, for the whole launch
-//            where a block holds one tile, else loaded and stored once a
-//            check period;
-//   shared Q staged in shared memory where it fits beside the tile (k up
-//            to ~225: 64 KB at k = 128), else read through L2 by tiles of
-//            8 rows, which share each read (4 MB at k = 1,024), 64 rows of
-//            Q in flight a warp. A warp owns 32 columns of the product for
-//            a group of rows: it reads a row of Q once for all of them and
+//            owning tiles of consecutive rows (ops/fista.py::_plan spreads
+//            the batch over the card); where a block holds one tile its
+//            state stays on the chip for the whole launch, else it is
+//            loaded and stored once a check period;
+//   registers a shared Q with k <= 128 (the image fit, its NMF, the l1
+//            codes at ADHD-70 width, transform and score): a thread owns
+//            column j of Q, read from device memory into registers once a
+//            launch, and the elements (r, j) of R rows of the tile (a row
+//            takes ceil(k / 32) warps; R = 1, 2 or 4 rows a thread for a
+//            large batch, so that one register of Q feeds R multiply-
+//            adds). A product reads only the rows' z from shared memory,
+//            a broadcast float4 at a time, and sums each output in four
+//            interleaved FMA chains (i = 0, 1, 2, 3 mod 4) added as
+//            (c0 + c1) + (c2 + c3). The thread keeps z, w and q of its
+//            elements in registers, applies the gradient step, the prox
+//            and the momentum there and writes the new z into the other
+//            half of a double-buffered row: one block barrier an
+//            iteration. t's chain of double operations runs beside the
+//            product's multiply-adds. At a check a row's sums are warp
+//            sums, then the row's warps in order;
+//   shared Q (k > 128) staged in shared memory where it fits beside the
+//            tile (k up to ~225), else read through L2 by tiles of 8
+//            rows, which share each read (4 MB at k = 1,024), 64 rows of
+//            Q in flight a warp. The tile's z, w, q and product live in
+//            shared memory; a warp owns 32 columns of the product for a
+//            group of rows: it reads a row of Q once for all of them and
 //            sums each output as one FMA chain over i;
 //   per-row Q (G_agg='average') the tile's rows' Grams staged in shared
 //            memory where one row's fits (k up to 238; 128 KB for two rows
@@ -46,26 +62,28 @@
 //            banks, each output one FMA chain over j; else (from k alone,
 //            never from the batch's size) read from device memory, a warp
 //            an output with its lanes reading Q_r[i, :] coalesced, then a
-//            butterfly sum;
-//   rows     the rest of an iteration, the power iteration's norms and
-//            the gap's reductions run a warp a row;
+//            butterfly sum; the rest of an iteration, the power
+//            iteration's norms and the gap's reductions run a warp a row;
 //   L        the power iteration runs in the kernel: for a shared Q every
 //            block computes it alone, with the same sums in the same
 //            order, so all hold the same L; per row, the block that owns
 //            the row;
-//   stop     at each check every block adds its count of unconverged rows
-//            to the check's slot and arrives at the counter barrier of
-//            grid_barrier.cuh; after the wait every block reads the total:
-//            one barrier a check and none an iteration;
+//   stop     at each check every block adds 2^32 (its arrival) and its
+//            count of unconverged rows to the check's 64-bit slot in one
+//            atomic, and spins until the slot shows every block's
+//            arrival; the count in that final value is the batch's, the
+//            same for every block: one round trip through L2 a check and
+//            no grid barrier an iteration;
 //   chunks   with sync = 0 a launch runs the iterations it0 + 1 .. it_end
 //            (one check, where a batch's rows are split over ranks that
 //            agree on the stop) with no barrier; w, z and 1/L stay in
 //            device memory between launches, t0 comes from the host.
 // A row's arithmetic depends neither on the block that holds it nor on
-// the batch's size (a shared Q's products sum in one order from shared
-// memory or L2, whatever the tile; per-row Grams are staged or not by k
-// alone), so ranks that solve part of a batch get the codes of the
-// whole batch's solve.
+// the batch's size (the path and, on the register path, the order of
+// every sum follow from k alone; a shared Q's products sum in one order
+// from shared memory or L2, whatever the tile; per-row Grams are staged
+// or not by k alone), so ranks that solve part of a batch get the codes
+// of the whole batch's solve.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,8 +108,9 @@ struct Params {
   float* w;            // (b, k) codes
   float* z;            // (b, k) extrapolated point
   float* inv_L;        // (b,) 1 / L; [0] for a shared Q
-  unsigned* counts;    // [n_checks] unconverged rows at each check, zero
-  unsigned* barrier;   // barrier arrivals, zero at launch
+  // [n_checks] at each check 2^32 a block that reached it plus the
+  // unconverged rows; zero at a solve's first launch
+  unsigned long long* counts;
   int* iters;          // the iteration the launch ended at
   int b, k, rt;
   float l1, l2, half_l2, tol;
@@ -373,6 +392,28 @@ __device__ void store_tile(const Params& p, const Tile& t, int row0,
   }
 }
 
+// Adds the block's arrival (2^32) and its count of unconverged rows to a
+// check's slot, in one relaxed atomic: the slot is all that blocks
+// exchange. Where `wait`, spins until all gridDim.x blocks have added
+// theirs and returns whether no row of the batch is left, read from the
+// slot's final value, which every block reads alike: one round trip
+// through L2 a check. Thread 0 only; a wait that never completes traps
+// (a launch error) after ~2^32 cycles instead of hanging the card.
+__device__ __forceinline__ bool check_slot(unsigned long long* slot,
+                                           unsigned cnt, bool wait) {
+  const unsigned long long mine = (1ull << 32) | cnt;
+  unsigned long long seen = atomicAdd(slot, mine) + mine;
+  if (!wait) return false;
+  long long t0 = -1;
+  while ((seen >> 32) < gridDim.x) {
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+                 : "=l"(seen) : "l"(slot) : "memory");
+    if (t0 < 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+  return (unsigned)seen == 0u;
+}
+
 // One iteration on the tile from its product mv = Q z; f = (t - 1) / t'.
 __device__ __forceinline__ void step(const Params& p, Tile& t, int nr,
                                      float f) {
@@ -391,6 +432,27 @@ __device__ __forceinline__ void step(const Params& p, Tile& t, int nr,
     }
   }
   __syncthreads();
+}
+
+// Whether a row's duality gap (ops/fista.py::_duality_gap) is below
+// tol * ||x||^2, from its sums q.w, w.Qw, |w|_1 and w.w, its dual norm
+// max_j (q - Qw - l2 w)_j (of the absolute values unless positive) and
+// y2 = ||x||^2.
+__device__ __forceinline__ bool gap_below_tol(const Params& p, float qdw,
+                                              float wH, float l1n, float ww,
+                                              float dn, float y2) {
+  const float R = __fsub_rn(__fadd_rn(y2, wH), __fmul_rn(2.f, qdw));
+  const bool over = dn > p.l1;
+  const float sc = over ? __fdiv_rn(p.l1, dn != 0.f ? dn : 1.f) : 1.f;
+  const float s2 = __fmul_rn(sc, sc);
+  float gap = over ? __fmul_rn(0.5f, __fadd_rn(R, __fmul_rn(R, s2))) : R;
+  gap = __fadd_rn(
+      gap, __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(p.l1, l1n),
+                                         __fmul_rn(sc, y2)),
+                               __fmul_rn(sc, qdw)),
+                     __fmul_rn(__fmul_rn(p.half_l2, __fadd_rn(1.f, s2)),
+                               ww)));
+  return gap < __fmul_rn(p.tol, y2);
 }
 
 // Adds the tile's rows whose duality gap (ops/fista.py::_duality_gap,
@@ -415,20 +477,8 @@ __device__ __forceinline__ void count_gaps(const Params& p, Tile& t,
   l1n = warp_sum(l1n);
   ww = warp_sum(ww);
   dn = warp_max(dn);
-  if (lane) return;
-  const float y2 = t.y2[warp];
-  const float R = __fsub_rn(__fadd_rn(y2, wH), __fmul_rn(2.f, qdw));
-  const bool over = dn > p.l1;
-  const float sc = over ? __fdiv_rn(p.l1, dn != 0.f ? dn : 1.f) : 1.f;
-  const float s2 = __fmul_rn(sc, sc);
-  float gap = over ? __fmul_rn(0.5f, __fadd_rn(R, __fmul_rn(R, s2))) : R;
-  gap = __fadd_rn(
-      gap, __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(p.l1, l1n),
-                                         __fmul_rn(sc, y2)),
-                               __fmul_rn(sc, qdw)),
-                     __fmul_rn(__fmul_rn(p.half_l2, __fadd_rn(1.f, s2)),
-                               ww)));
-  if (!(gap < __fmul_rn(p.tol, y2))) atomicAdd(t.cnt, 1u);
+  if (lane == 0 && !gap_below_tol(p, qdw, wH, l1n, ww, dn, t.y2[warp]))
+    atomicAdd(t.cnt, 1u);
 }
 
 template <bool SHARED, bool QSMEM>
@@ -466,11 +516,11 @@ __global__ void __launch_bounds__(THREADS, 1) fista_kernel(const Params p) {
   const bool resident = ntiles <= (int)gridDim.x;  // one tile a block
   int it = p.it0;
   double t_run = p.t0;
-  unsigned barriers = 0;
   for (bool first = true;; first = false) {
     const int end = min((it / CHECK_EVERY + 1) * CHECK_EVERY, p.it_end);
     const bool check = end > it && end % CHECK_EVERY == 0;
     if (tid == 0) *t.cnt = 0;
+    double t_end = t_run;  // every tile runs the same iterations
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * rt, nr = min(rt, p.b - row0);
       if (first || !resident)
@@ -484,6 +534,7 @@ __global__ void __launch_bounds__(THREADS, 1) fista_kernel(const Params p) {
         product<SHARED, QSMEM>(p, Qs, t.z, t.mv, row0, nr);
         step(p, t, nr, f);
       }
+      t_end = tt;
       if (check) {
         product<SHARED, QSMEM>(p, Qs, t.w, t.mv, row0, nr);
         count_gaps(p, t, nr);
@@ -494,16 +545,14 @@ __global__ void __launch_bounds__(THREADS, 1) fista_kernel(const Params p) {
         __syncthreads();
       }
     }
-    for (int i = it; i < end; ++i) t_run = next_t(t_run);
+    t_run = t_end;
     it = end;
     if (check) {
       __syncthreads();
-      const int c = end / CHECK_EVERY - 1;
-      if (tid == 0) atomicAdd(p.counts + c, *t.cnt);
-      if (p.sync && end < p.it_end) {
-        if (tid == 0) arrive(p.barrier);
-        grid_wait(p.barrier, ++barriers * gridDim.x);
-        if (tid == 0) *t.stop = __ldcg(p.counts + c) == 0u;
+      const bool wait = p.sync && end < p.it_end;
+      if (tid == 0)
+        *t.stop = check_slot(p.counts + end / CHECK_EVERY - 1, *t.cnt, wait);
+      if (wait) {
         __syncthreads();
         if (*t.stop) break;
       }
@@ -517,15 +566,311 @@ __global__ void __launch_bounds__(THREADS, 1) fista_kernel(const Params p) {
   if (blockIdx.x == 0 && tid == 0) *p.iters = it;
 }
 
+// ---- The register path: a shared Q with k <= REG_K ----------------------
+//
+// A row takes NC = ceil(k / 32) warps, so a pass holds P = NWARPS / NC rows
+// (warps past P * NC idle) and a tile P * R rows: the thread of warp w and
+// lane l is in row group g = w / NC, owns column j = 32 (w % NC) + l and
+// the tile's rows u P + g, u < R. Rows and columns past the batch and k
+// are zeros, which change no sum.
+
+constexpr int REG_K = 128;    // ops/fista.py::REG_K
+constexpr int GAP_SUMS = 5;   // q.w, w.Qw, |w|_1, w.w and the dual norm
+
+// m[u] = sum_i Z_u[i] qc[i] for the thread's R rows, whose z lie at
+// Z + u * STRIDE in shared memory: four interleaved FMA chains over i, one
+// for each of i = 0, 1, 2, 3 mod 4, added as (c0 + c1) + (c2 + c3). Every
+// lane of a warp reads the same float4 of a row (a broadcast).
+template <int KP, int R, int STRIDE>
+__device__ __forceinline__ void product_regs(const float (&qc)[KP],
+                                             const float* Z,
+                                             float (&m)[R]) {
+  float a[R][4];
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) a[u][s] = 0.f;
+#pragma unroll
+  for (int i = 0; i < KP; i += 4) {
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const float4 x = *reinterpret_cast<const float4*>(Z + u * STRIDE + i);
+      a[u][0] = fmaf(x.x, qc[i], a[u][0]);
+      a[u][1] = fmaf(x.y, qc[i + 1], a[u][1]);
+      a[u][2] = fmaf(x.z, qc[i + 2], a[u][2]);
+      a[u][3] = fmaf(x.w, qc[i + 3], a[u][3]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+    m[u] = __fadd_rn(__fadd_rn(a[u][0], a[u][1]),
+                     __fadd_rn(a[u][2], a[u][3]));
+}
+
+// The sums of NV values (the last one's max where MAX) over the threads of
+// each of the thread's R rows: a butterfly in each warp, then the row's
+// NC warps' results added in order. Every thread of an active row group
+// gets its rows' totals. Called by the whole block (one barrier); `red`
+// holds NWARPS * R * NV floats, and the caller puts a block barrier
+// between these reads of it and the next call's writes.
+template <int NC, int R, int NV, bool MAX>
+__device__ __forceinline__ void row_reduce(float (&v)[R][NV], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      v[u][n] = MAX && n == NV - 1 ? warp_max(v[u][n]) : warp_sum(v[u][n]);
+      if (lane == 0) red[(warp * R + u) * NV + n] = v[u][n];
+    }
+  __syncthreads();
+  if (warp / NC >= NWARPS / NC) return;
+  const int w0 = warp - warp % NC;
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      float s = red[(w0 * R + u) * NV + n];
+#pragma unroll
+      for (int c = 1; c < NC; ++c) {
+        const float x = red[((w0 + c) * R + u) * NV + n];
+        s = MAX && n == NV - 1 ? fmaxf(s, x) : __fadd_rn(s, x);
+      }
+      v[u][n] = s;
+    }
+}
+
+// 1 / L of the shared Q as lipschitz() defines it, from Q's column in
+// registers: each row group runs the power iteration on its own row v
+// (its z row of the first buffer), so that every active thread ends with
+// the same value, as every block does.
+template <int NC>
+__device__ __forceinline__ float lipschitz_regs(const Params& p,
+                                               const float (&qc)[32 * NC],
+                                               float* v, float* red, int j,
+                                               bool active) {
+  constexpr int KP = 32 * NC;
+  if (active) v[j] = j < p.k ? 1.f : 0.f;
+  __syncthreads();
+  float inv_L = 0.f;
+  for (int n = 0; n <= POWER_ITERS; ++n) {
+    float m[1] = {0.f};
+    if (active) product_regs<KP, 1, 0>(qc, v, m);
+    if (n < POWER_ITERS) {
+      float s[1][1] = {{__fmul_rn(m[0], m[0])}};
+      row_reduce<NC, 1, 1, false>(s, red);
+      const float d = fmaxf(sqrtf(s[0][0]), 1e-30f);
+      if (active) v[j] = __fdiv_rn(m[0], d);
+      __syncthreads();
+    } else {
+      const float vj = active ? v[j] : 0.f;
+      float s[1][2] = {{__fmul_rn(vj, m[0]), __fmul_rn(vj, vj)}};
+      row_reduce<NC, 1, 2, false>(s, red);
+      const float L = __fmul_rn(
+          __fadd_rn(fmaxf(__fdiv_rn(s[0][0], fmaxf(s[0][1], 1e-30f)),
+                          1e-12f),
+                    p.l2),
+          1.01f);
+      inv_L = __fdiv_rn(1.f, L);
+    }
+  }
+  return inv_L;
+}
+
+// The thread's elements of the tile at row0 (nr rows): q, ||x||^2 and w
+// and z, prox(w0) on a launch's first visit of a solve (init), else the
+// state in device memory; z also into the tile's rows of Z.
+template <int NC, int R>
+__device__ __forceinline__ void load_regs(const Params& p, float* Z,
+                                          int row0, int nr, bool init,
+                                          float thr, int g, int j,
+                                          bool active, float (&z)[R],
+                                          float (&w)[R], float (&q)[R],
+                                          float (&y2)[R]) {
+  constexpr int P = NWARPS / NC, KP = 32 * NC;
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int rr = u * P + g;
+    const bool in = active && rr < nr && j < p.k;
+    const size_t x = (size_t)(row0 + rr) * p.k + j;
+    q[u] = in ? __ldg(p.q + x) : 0.f;
+    y2[u] = active && rr < nr ? __ldg(p.y2 + row0 + rr) : 0.f;
+    if (init) {
+      w[u] = z[u] = in ? prox(__ldg(p.w0 + x), thr, p.positive) : 0.f;
+    } else {
+      w[u] = in ? p.w[x] : 0.f;
+      z[u] = in ? p.z[x] : 0.f;
+    }
+    if (active) Z[rr * KP + j] = z[u];
+  }
+}
+
+template <int NC, int R>
+__device__ __forceinline__ void store_regs(const Params& p, int row0,
+                                           int nr, int g, int j,
+                                           bool active, const float (&z)[R],
+                                           const float (&w)[R]) {
+  constexpr int P = NWARPS / NC;
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const int rr = u * P + g;
+    if (active && rr < nr && j < p.k) {
+      const size_t x = (size_t)(row0 + rr) * p.k + j;
+      p.w[x] = w[u];
+      p.z[x] = z[u];
+    }
+  }
+}
+
+template <int NC, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+    fista_kernel_registers(const Params p) {
+  constexpr int KP = 32 * NC, P = NWARPS / NC, RT = P * R;
+  extern __shared__ __align__(16) float smem[];
+  float* zs = smem;                         // [2][RT][KP] z, double-buffered
+  float* ws = zs + 2 * RT * KP;             // [RT][KP] w at a check
+  float* red = ws + RT * KP;                // [NWARPS][R][GAP_SUMS]
+  // the block's count of unconverged rows, and the stop
+  unsigned* cnt = reinterpret_cast<unsigned*>(red + NWARPS * R * GAP_SUMS);
+  const int k = p.k, tid = threadIdx.x, warp = tid >> 5;
+  const int g = warp / NC, j = (warp % NC) * 32 + (tid & 31);
+  const bool active = g < P, lead = active && warp % NC == 0 && !(tid & 31);
+
+  float qc[KP];
+#pragma unroll
+  for (int i = 0; i < KP; ++i)
+    qc[i] = active && i < k && j < k ? __ldg(p.Q + (size_t)i * k + j) : 0.f;
+  if (tid == 0) *cnt = 0;
+  float inv_L;
+  if (p.it0 == 0) {
+    inv_L = lipschitz_regs<NC>(p, qc, zs + g * KP, red, j, active);
+    if (blockIdx.x == 0 && tid == 0) p.inv_L[0] = inv_L;
+  } else {
+    inv_L = p.inv_L[0];
+  }
+  const float thr = __fmul_rn(p.l1, inv_L);
+
+  const int ntiles = (p.b + RT - 1) / RT;
+  const bool resident = ntiles <= (int)gridDim.x;  // one tile a block
+  float z[R], w[R], q[R], y2[R];
+  int it = p.it0, cur = 0;
+  double t_run = p.t0;
+  for (bool first = true;; first = false) {
+    const int end = min((it / CHECK_EVERY + 1) * CHECK_EVERY, p.it_end);
+    const bool check = end > it && end % CHECK_EVERY == 0;
+    double t_end = t_run;  // every tile runs the same iterations
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int row0 = tile * RT, nr = min(RT, p.b - row0);
+      if (first || !resident) {
+        load_regs<NC, R>(p, zs + cur * RT * KP, row0, nr,
+                         first && p.it0 == 0, thr, g, j, active, z, w, q,
+                         y2);
+        __syncthreads();
+      }
+      double tt = t_run;
+      for (int i = it; i < end; ++i) {
+        if (active) {
+          // t' and the factor in the product's basic block, where their
+          // chain of double operations overlaps its multiply-adds
+          const double tn = next_t(tt);
+          float mz[R];
+          product_regs<KP, R, P * KP>(qc, zs + (cur * RT + g) * KP, mz);
+          const float f =
+              __double2float_rn(__ddiv_rn(__dsub_rn(tt, 1.0), tn));
+          tt = tn;
+          float* zn = zs + ((cur ^ 1) * RT + g) * KP + j;
+          const bool keep_w = check && i + 1 == end;
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const float gr = __fadd_rn(__fsub_rn(mz[u], q[u]),
+                                       __fmul_rn(p.l2, z[u]));
+            const float wn = prox(__fsub_rn(z[u], __fmul_rn(gr, inv_L)),
+                                  thr, p.positive);
+            z[u] = __fadd_rn(wn, __fmul_rn(f, __fsub_rn(wn, w[u])));
+            w[u] = wn;
+            zn[u * P * KP] = z[u];
+            if (keep_w) ws[(u * P + g) * KP + j] = wn;
+          }
+        }
+        cur ^= 1;
+        __syncthreads();
+      }
+      t_end = tt;
+      if (check) {
+        float v[R][GAP_SUMS];
+#pragma unroll
+        for (int u = 0; u < R; ++u)
+#pragma unroll
+          for (int n = 0; n < GAP_SUMS; ++n) v[u][n] = 0.f;
+        if (active) {
+          float mw[R];
+          product_regs<KP, R, P * KP>(qc, ws + g * KP, mw);
+#pragma unroll
+          for (int u = 0; u < R; ++u) {
+            const float wj = w[u], qj = q[u], hj = mw[u];
+            const float xta =
+                __fsub_rn(__fsub_rn(qj, hj), __fmul_rn(p.l2, wj));
+            v[u][0] = __fmul_rn(wj, qj);
+            v[u][1] = __fmul_rn(wj, hj);
+            v[u][2] = fabsf(wj);
+            v[u][3] = __fmul_rn(wj, wj);
+            v[u][4] = j < k ? (p.positive ? xta : fabsf(xta)) : -INFINITY;
+          }
+        }
+        row_reduce<NC, R, GAP_SUMS, true>(v, red);
+        if (lead) {
+#pragma unroll
+          for (int u = 0; u < R; ++u)
+            if (u * P + g < nr && !gap_below_tol(p, v[u][0], v[u][1],
+                                                 v[u][2], v[u][3], v[u][4],
+                                                 y2[u]))
+              atomicAdd(cnt, 1u);
+        }
+      }
+      if (!resident) store_regs<NC, R>(p, row0, nr, g, j, active, z, w);
+    }
+    t_run = t_end;
+    it = end;
+    if (check) {
+      __syncthreads();
+      const bool wait = p.sync && end < p.it_end;
+      if (tid == 0) {
+        cnt[1] = check_slot(p.counts + end / CHECK_EVERY - 1, cnt[0], wait);
+        cnt[0] = 0;
+      }
+      if (wait) {
+        __syncthreads();
+        if (cnt[1]) break;
+      }
+    }
+    if (it >= p.it_end) break;
+  }
+  if (resident && (int)blockIdx.x < ntiles)
+    store_regs<NC, R>(p, blockIdx.x * RT, min(RT, p.b - (int)blockIdx.x * RT),
+                      g, j, active, z, w);
+  if (blockIdx.x == 0 && tid == 0) *p.iters = it;
+}
+
 }  // namespace
+
+// Dynamic shared memory of the register path's kernel: z twice and w
+// for the rt rows of a tile at the padded width, the row sums' slots and
+// the block's count (ops/fista.py::_reg_smem).
+static int reg_smem(int rt, int nc, int r) {
+  return 4 * (3 * rt * 32 * nc + NWARPS * r * GAP_SUMS + 2);
+}
 
 // Launch on `stream` as a cooperative grid of `grid` blocks of THREADS
 // threads, tiles of `rt` rows and the `smem` bytes of dynamic shared
-// memory of ops/fista.py::_plan (`q_smem`: Q, or the tile's rows' Grams,
-// staged there).
-// `scratch` holds z (b k floats), 1/L (b), then as 32-bit integers the
-// `n_checks` counts, the barrier counter and the iteration count; the
-// counts and the barrier counter must be zero at a solve's first launch.
+// memory of ops/fista.py::_plan, on its `path`: 2, a shared Q in
+// registers (k <= 128; rt a multiple of the rows a pass holds, 1, 2 or 4
+// rows a thread); 1, Q or the tile's rows' Grams staged in shared memory;
+// 0, read from L2 or device memory (rt <= 8 on both).
+// `scratch` holds z (b k floats), 1/L (b), from the next 8-byte boundary
+// the `n_checks` 64-bit slots of the checks (2^32 an arrival plus the
+// unconverged rows: the low 32 bits are the count), then the iteration
+// count as a 32-bit integer; the slots must be zero at a solve's first
+// launch.
 // sync = 1 runs iterations it0 + 1 .. it_end with the stop test on the
 // grid; sync = 0 runs them with no barrier (it_end - it0 <= 5 where a
 // check falls). Allocates nothing and does not synchronise; returns the
@@ -533,24 +878,45 @@ __global__ void __launch_bounds__(THREADS, 1) fista_kernel(const Params p) {
 extern "C" cudaError_t modl_fista_gram_f32(
     const float* w0, const float* Q, const float* q, const float* y2,
     float* w, float* scratch, int b, int k, int shared, int rt, int grid,
-    int smem, int q_smem, float l1, float l2, float half_l2, float tol,
+    int smem, int path, float l1, float l2, float half_l2, float tol,
     int positive, int it0, int it_end, double t0, int sync, int n_checks,
     void* stream) {
-  if (b < 1 || k < 1 || rt < 1 || rt > MAX_TILE || grid < 1 ||
-      grid > (b + rt - 1) / rt || it0 < 0 || it_end < it0 ||
-      n_checks < it_end / CHECK_EVERY)
+  if (b < 1 || k < 1 || rt < 1 || grid < 1 || grid > (b + rt - 1) / rt ||
+      it0 < 0 || it_end < it0 || n_checks < it_end / CHECK_EVERY ||
+      path < 0 || path > 2)
     return cudaErrorInvalidValue;
+  using Kern = void (*)(const Params);
+  const void* kern;
+  if (path == 2) {
+    const int nc = (k + 31) / 32, r = rt / (NWARPS / nc);
+    const int ri = r == 1 ? 0 : r == 2 ? 1 : r == 4 ? 2 : -1;
+    if (!shared || k > REG_K || ri < 0 || rt != r * (NWARPS / nc) ||
+        smem < reg_smem(rt, nc, r))
+      return cudaErrorInvalidValue;
+    static const Kern kerns[4][3] = {
+        {fista_kernel_registers<1, 1>, fista_kernel_registers<1, 2>,
+         fista_kernel_registers<1, 4>},
+        {fista_kernel_registers<2, 1>, fista_kernel_registers<2, 2>,
+         fista_kernel_registers<2, 4>},
+        {fista_kernel_registers<3, 1>, fista_kernel_registers<3, 2>,
+         fista_kernel_registers<3, 4>},
+        {fista_kernel_registers<4, 1>, fista_kernel_registers<4, 2>,
+         fista_kernel_registers<4, 4>}};
+    kern = (const void*)kerns[nc - 1][ri];
+  } else {
+    if (rt > MAX_TILE) return cudaErrorInvalidValue;
+    static const Kern kerns[2][2] = {
+        {fista_kernel<false, false>, fista_kernel<false, true>},
+        {fista_kernel<true, false>, fista_kernel<true, true>}};
+    kern = (const void*)kerns[shared ? 1 : 0][path];
+  }
   float* z = scratch;
   float* inv_L = z + (size_t)b * k;
-  unsigned* counts = reinterpret_cast<unsigned*>(inv_L + b);
-  Params p{w0, Q, q, y2, w, z, inv_L, counts, counts + n_checks,
-           reinterpret_cast<int*>(counts + n_checks + 1), b, k, rt, l1, l2,
+  auto* counts = reinterpret_cast<unsigned long long*>(
+      scratch + ((size_t)b * k + b + 1) / 2 * 2);
+  Params p{w0, Q, q, y2, w, z, inv_L, counts,
+           reinterpret_cast<int*>(counts + n_checks), b, k, rt, l1, l2,
            half_l2, tol, positive, it0, it_end, sync, t0};
-  using Kern = void (*)(const Params);
-  static const Kern kerns[2][2] = {
-      {fista_kernel<false, false>, fista_kernel<false, true>},
-      {fista_kernel<true, false>, fista_kernel<true, true>}};
-  const void* kern = (const void*)kerns[shared ? 1 : 0][q_smem ? 1 : 0];
   void* args[] = {&p};
   return launch_cooperative(kern, grid, THREADS, smem, args, stream);
 }

@@ -33,14 +33,20 @@ and reads the agreed count once a call (on the CPU the same driver calls
 the plain iterations). ``LAUNCHES`` counts kernel launches;
 ``last_iterations`` reads the iterations the last launch ended at.
 
-The kernel is a persistent cooperative grid: each block owns tiles of up
-to 8 rows, keeps their ``w``, ``z`` and ``q`` in shared memory, and holds
-Q there too where it fits (a shared Q up to about k = 225; per-row Grams
-up to k = 238, as many rows a tile as fit), else reads it through L2. At
-each check every block adds its count of unconverged rows to a global
-counter and waits at one grid barrier; then every block reads the total.
-Whether per-row Grams are staged depends on k alone, and every product
-sums each output in one order wherever Q lies, so a row's arithmetic
+The kernel is a persistent cooperative grid: each block owns tiles of
+rows. A shared Q with k <= 128 (``REG_K``) is held in registers, a
+thread a column of Q and its elements of 1, 2 or 4 rows, which keep
+their ``w``, ``z`` and ``q`` in registers too: each product reads only
+the rows' ``z`` from shared memory, and an iteration ends at one block
+barrier. Otherwise a tile of up to 8 rows keeps its ``w``, ``z`` and
+``q`` in shared memory, with Q too where it fits (a shared Q up to about
+k = 225; per-row Grams up to k = 238, as many rows a tile as fit), else
+Q is read through L2. At each check every block adds its arrival and
+its count of unconverged rows to the check's 64-bit slot in one atomic
+and waits until the slot holds every block's arrival; the count it then
+reads is the batch's, alike in every block. The path, and whether
+per-row Grams are staged, depend on k alone, and every path sums each
+output in one order wherever the row lies, so a row's arithmetic
 depends neither on the block that holds it nor on the batch's size:
 ranks that solve part of a batch get the codes of the whole batch's
 solve.
@@ -48,6 +54,7 @@ solve.
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -64,8 +71,18 @@ _last_scratch = None
 CHECK_EVERY = 5     # iterations between duality-gap tests
 POWER_ITERS = 16    # power iterations for the Lipschitz constant
 
-# rows of a block's tile (at most the kernel's warps: one warp a row)
+# the kernel's warps a block
+NWARPS = 8
+# rows of a block's tile on the shared-memory and L2 paths (at most the
+# kernel's warps: one warp a row)
 MAX_TILE = 8
+# a shared Q up to this k is held in registers (a column a thread)
+REG_K = 128
+# rows a thread on the register path, and the row sums of a check
+ROWS_A_THREAD = (1, 2, 4)
+_GAP_SUMS = 5
+# the kernel's paths, as its entry point numbers them
+PATHS = {'l2': 0, 'smem': 1, 'registers': 2}
 # dynamic shared memory one block may opt into on sm_90 (227 KB)
 SMEM_BYTES = 232448
 # bytes of a tile's rows' 1/L and ||x||^2 and its two counters
@@ -226,19 +243,54 @@ def _q_bytes(k, rt, shared):
     return 4 * k * k if shared else 4 * rt * k * (k + 1)
 
 
-def _plan(b, k, shared, sms):
-    """(rows a tile, blocks, dynamic smem bytes, Q staged in shared
-    memory) on a card of ``sms`` multiprocessors.
+def _reg_smem(rt, k, rows_a_thread):
+    """Shared memory of the register path: z twice and w for a tile's rows
+    at k padded to whole warps, the row sums' slots, the block's count
+    and its stop flag."""
+    kp = 32 * -(-k // 32)
+    return 4 * (3 * rt * kp + NWARPS * rows_a_thread * _GAP_SUMS + 2)
 
-    A tile's z, w, q and Q z take 16 k bytes a row, beside its rows' 1/L
-    and ||x||^2 and two counters. Rows spread over one block a
-    multiprocessor, up to ``MAX_TILE`` a tile. A shared Q is staged
-    beside them where it fits; one that does not is read through L2 by
-    tiles of ``MAX_TILE`` rows, which share each read (both products sum
-    in the same order). Per-row Grams are staged where one row's fits,
-    whatever the batch's size (the staged and the device-memory products
-    sum in different orders), with as many rows a tile as fit."""
-    rt = min(MAX_TILE, max(1, -(-b // sms)))
+
+class Plan(NamedTuple):
+    """A launch's shape: rows a tile, blocks, dynamic shared memory bytes,
+    whether Q (or the tile's rows' Grams) is staged in shared memory,
+    the kernel's path (``'registers'``, ``'smem'`` or ``'l2'``) and the
+    rows of the product each thread sums."""
+    rt: int
+    grid: int
+    smem: int
+    q_smem: bool
+    path: str
+    rows_a_thread: int
+
+
+def _plan(b, k, shared, sms):
+    """The :class:`Plan` of a solve on a card of ``sms`` multiprocessors.
+
+    A shared Q with k <= ``REG_K`` takes the register path, whatever the
+    batch: a row takes ceil(k / 32) warps, so a pass holds 8 // that
+    many rows, and a tile as many passes (rows a thread: 1, 2 or 4) as
+    spread the batch over one block a multiprocessor; where 4 do not,
+    the tiles loop over the blocks.
+
+    Otherwise a tile's z, w, q and Q z take 16 k bytes a row in shared
+    memory, beside its rows' 1/L and ||x||^2 and two counters. Rows
+    spread over one block a multiprocessor, up to ``MAX_TILE`` a tile. A
+    shared Q is staged beside them where it fits; one that does not is
+    read through L2 by tiles of ``MAX_TILE`` rows, which share each read
+    (both products sum in the same order). Per-row Grams are staged
+    where one row's fits, whatever the batch's size (the staged and the
+    device-memory products sum in different orders), with as many rows a
+    tile as fit."""
+    per_block = max(1, -(-b // sms))
+    if shared and k <= REG_K:
+        per_pass = NWARPS // -(-k // 32)
+        r = next((r for r in ROWS_A_THREAD if per_pass * r >= per_block),
+                 ROWS_A_THREAD[-1])
+        rt = per_pass * r
+        return Plan(rt, max(1, min(-(-b // rt), sms)), _reg_smem(rt, k, r),
+                    False, 'registers', r)
+    rt = min(MAX_TILE, per_block)
     row = 16 * k
     if shared:
         q_smem = (_q_bytes(k, 1, True) + rt * row + _TILE_EXTRA_BYTES
@@ -254,7 +306,12 @@ def _plan(b, k, shared, sms):
     grid = max(1, min(-(-b // rt), sms))
     smem = (rt * row + _TILE_EXTRA_BYTES
             + (_q_bytes(k, rt, shared) if q_smem else 0))
-    return rt, grid, smem, q_smem
+    # a warp owns 32 columns of a shared Q's product for a group of rows;
+    # of a per-row Gram's, outputs of one row
+    nc = -(-k // 32)
+    groups = max(1, min(rt, NWARPS // nc))
+    return Plan(rt, grid, smem, q_smem, 'smem' if q_smem else 'l2',
+                -(-rt // groups) if shared else 1)
 
 
 def supported(k):
@@ -281,8 +338,9 @@ def last_iterations():
 
 class _KernelChecks:
     """Launches of the kernel on one solve's state: ``w`` (the codes)
-    and a scratch of z, 1/L, the checks' counts, the barrier counter and
-    the iteration count."""
+    and a scratch of z, 1/L, from the next 8-byte boundary the checks'
+    64-bit slots (2^32 a block that reached the check plus the
+    unconverged rows) and the iteration count."""
 
     def __init__(self, w0, Q, q, y_norm2, l1_reg, l2_reg, positive,
                  max_iter, tol):
@@ -295,29 +353,31 @@ class _KernelChecks:
         self.plan = _plan(b, k, Q.ndim == 2, sms)
         self.n_checks = max_iter // CHECK_EVERY
         self.w = torch.empty_like(q)
-        self.scratch = torch.empty(b * k + b + self.n_checks + 2,
+        slots = (b * k + b + 1) // 2 * 2
+        self.scratch = torch.empty(slots + 2 * self.n_checks + 1,
                                    dtype=torch.float32, device=q.device)
         self.scratch[b * k + b:].zero_()
-        self.counts = self.scratch[b * k + b:][:self.n_checks].view(
-            torch.int32)
+        # each slot's low 32 bits: the count
+        self.counts = self.scratch[slots:-1].view(torch.int32)[0::2]
 
     def __call__(self, it0, it_end, t0, sync=False):
         global LAUNCHES, _last_scratch
         w0, Q, q, y_norm2 = self.ops
         b, k = q.shape
         if b:
-            rt, grid, smem, q_smem = self.plan
+            plan = self.plan
             err = _kernel()(
                 w0.data_ptr(), Q.data_ptr(), q.data_ptr(),
                 y_norm2.data_ptr(), self.w.data_ptr(),
-                self.scratch.data_ptr(), b, k, int(Q.ndim == 2), rt, grid,
-                smem, int(q_smem), *self.params, it0, it_end, float(t0),
-                int(sync), self.n_checks,
+                self.scratch.data_ptr(), b, k, int(Q.ndim == 2), plan.rt,
+                plan.grid, plan.smem, PATHS[plan.path], *self.params, it0,
+                it_end, float(t0), int(sync), self.n_checks,
                 torch.cuda.current_stream(q.device).cuda_stream)
             if err != 0:
                 raise RuntimeError(
                     f'fista_gram: kernel launch failed with cudaError '
-                    f'{err} at (b={b}, k={k}, grid={grid})')
+                    f'{err} at (b={b}, k={k}, grid={plan.grid}, '
+                    f'path={plan.path})')
             LAUNCHES += 1
             _last_scratch = self.scratch
         if sync or it_end == it0 or it_end % CHECK_EVERY:

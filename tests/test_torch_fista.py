@@ -2,7 +2,8 @@
 modl_tpu's ``fista_gram`` (a ``lax.while_loop``), the check-at-a-time
 driver that runs a batch split over ranks, and what the CUDA wrapper
 plans and refuses (the kernel itself runs in ``chip_smoke.py`` phase
-fista).
+fista), and a numpy emulation of the order in which the kernel's
+register path (a shared Q with k <= 128) sums.
 
 Both packages run the same iterations, power iteration and gap test in
 the same order, so the codes agree to roundoff: 1e-12 at float64 (the
@@ -169,26 +170,51 @@ def test_solvers_dispatch_to_the_wrapper():
 SMS = 132   # multiprocessors of an H100 SXM
 
 
-@pytest.mark.parametrize('b,k,shared,rt,q_smem', [
-    (200, 128, True, 2, True),       # the image fit: over 100 blocks
-    (200, 128, False, 2, True),      # per-row Grams, two a block
-    (200, 200, False, 1, True),      # per-row Grams, one a tile
-    (200, 256, False, 2, False),     # per-row Grams from device memory
-    (1200, 128, False, 3, True),     # as many per-row Grams as fit
-    (100, 70, True, 1, True),
-    (200, 1024, True, 8, False),     # Q through L2, tiles of 8 rows
-    (500, 128, True, 4, True),
-    (2000, 128, True, 8, True),      # the image score: 250 tiles
-    (20_000, 128, True, 8, True),    # transform: 19 tiles a block
-    (3, 5, True, 1, True)])
-def test_plan(b, k, shared, rt, q_smem):
-    got_rt, grid, smem, got_q = fista._plan(b, k, shared, SMS)
-    assert (got_rt, got_q) == (rt, q_smem)
-    assert grid == min(-(-b // rt), SMS)
-    assert smem <= fista.SMEM_BYTES
-    q_bytes = 4 * k * k if shared else 4 * rt * k * (k + 1)
-    assert smem == 16 * rt * k + fista._TILE_EXTRA_BYTES + (
-        q_bytes if q_smem else 0)
+@pytest.mark.parametrize('b,k,shared,rt,path,rows_a_thread', [
+    (200, 128, True, 2, 'registers', 1),   # the image fit: over 100 blocks
+    (200, 128, False, 2, 'smem', 1),       # per-row Grams, two a block
+    (200, 200, False, 1, 'smem', 1),       # per-row Grams, one a tile
+    (200, 256, False, 2, 'l2', 1),         # per-row Grams from device memory
+    (1200, 128, False, 3, 'smem', 1),      # as many per-row Grams as fit
+    (100, 70, True, 2, 'registers', 1),    # three warps a row, two a block
+    (200, 1024, True, 8, 'l2', 8),         # Q through L2, tiles of 8 rows
+    (500, 128, True, 4, 'registers', 2),
+    (2000, 128, True, 8, 'registers', 4),  # the image score: 250 tiles
+    (20_000, 128, True, 8, 'registers', 4),  # transform: 19 tiles a block
+    (3, 5, True, 8, 'registers', 1)])      # a warp a row, 8 a pass
+def test_plan(b, k, shared, rt, path, rows_a_thread):
+    plan = fista._plan(b, k, shared, SMS)
+    assert (plan.rt, plan.path, plan.rows_a_thread) == (rt, path,
+                                                        rows_a_thread)
+    assert plan.q_smem == (path == 'smem')
+    assert plan.grid == min(-(-b // rt), SMS)
+    assert plan.smem <= fista.SMEM_BYTES
+    if path == 'registers':
+        kp = 32 * -(-k // 32)
+        assert plan.smem == 4 * (3 * rt * kp + 5 * 8 * rows_a_thread + 2)
+    else:
+        q_bytes = 4 * k * k if shared else 4 * rt * k * (k + 1)
+        assert plan.smem == 16 * rt * k + fista._TILE_EXTRA_BYTES + (
+            q_bytes if plan.q_smem else 0)
+
+
+@pytest.mark.parametrize('k', [1, 5, 32, 33, 64, 70, 96, 128, 129, 200])
+def test_plan_picks_the_register_path_by_k_alone(k):
+    """The register path sums in another order than the shared-memory and
+    L2 products, so a shared Q takes it by k alone, whatever the batch:
+    half a batch (a rank's rows) runs the whole batch's arithmetic. A row
+    takes ceil(k / 32) warps of 8, and a tile 1, 2 or 4 such passes."""
+    plans = [fista._plan(b, k, True, SMS)
+             for b in (1, 50, 100, 132, 200, 264, 500, 2000, 20_000)]
+    paths = {plan.path for plan in plans}
+    if k > fista.REG_K:
+        assert 'registers' not in paths
+        return
+    assert paths == {'registers'}
+    per_pass = 8 // -(-k // 32)
+    for plan in plans:
+        assert plan.rows_a_thread in fista.ROWS_A_THREAD
+        assert plan.rt == per_pass * plan.rows_a_thread
 
 
 @pytest.mark.parametrize('k', [128, 169, 200, 238, 239, 256])
@@ -240,3 +266,138 @@ def test_wrapper_takes_only_cpu_or_cuda():
            torch.ones(2, 3, device='meta'), torch.ones(2, device='meta')]
     with pytest.raises(ValueError, match='CPU or CUDA'):
         fista.fista_gram(*ops, 0.1, 0.0, False, 10, 1e-3)
+
+
+# -- the register path's order of sums, emulated in numpy float32 --------
+
+f32 = np.float32
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (the product is exact in float64;
+    the sum's two roundings match one but for rare ties)."""
+    return (a.astype(np.float64) * b + c).astype(f32)
+
+
+def _row_sum(x, op=np.add):
+    """The kernel's sum over a row's threads, x (..., kp): a butterfly in
+    each warp of 32, then the warps' results in order."""
+    total = None
+    for c in range(x.shape[-1] // 32):
+        a = x[..., 32 * c:32 * (c + 1)]
+        while a.shape[-1] > 1:
+            a = op(a[..., :a.shape[-1] // 2], a[..., a.shape[-1] // 2:])
+        total = a[..., 0] if total is None else op(total, a[..., 0])
+    return total
+
+
+def _product(Z, Qp):
+    """Z @ Qp as the register path sums each output: four interleaved FMA
+    chains over i (i mod 4), added as (c0 + c1) + (c2 + c3)."""
+    rows, kp = Z.shape
+    acc = np.zeros((4, rows, kp), f32)
+    Z4, Q4 = Z.reshape(rows, kp // 4, 4), Qp.reshape(kp // 4, 4, kp)
+    for s in range(kp // 4):
+        acc = _fma(Z4[:, s, :].T[:, :, None], Q4[s][:, None, :], acc)
+    return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+
+def _prox(x, thr, positive):
+    out = np.sign(x) * np.maximum(np.abs(x) - thr, f32(0))
+    return np.maximum(out, f32(0)) if positive else out
+
+
+def _emulate_registers(w0, Q, q, y2, l1, l2, positive, max_iter, tol):
+    """The register path's solve of a shared Q (k <= 128) in float32, with
+    the kernel's order of every sum and its roundings: Q z and Q w by
+    :func:`_product`, the power iteration's and the gap's row sums by
+    :func:`_row_sum`, t in double and the momentum factor as a float.
+    Returns (codes, iterations)."""
+    b, k = q.shape
+    kp = 32 * -(-k // 32)
+
+    def pad(a):
+        return np.pad(a.astype(f32), [(0, 0)] * (a.ndim - 1)
+                      + [(0, kp - a.shape[-1])])
+
+    Qp = pad(np.pad(Q.astype(f32), [(0, kp - k), (0, 0)]))
+    q, y2, l1, l2 = pad(q), y2.astype(f32), f32(l1), f32(l2)
+    v = pad(np.ones((1, k), f32))
+    for n in range(16):
+        m = _product(v, Qp)
+        d = np.maximum(np.sqrt(_row_sum(m * m)), f32(1e-30))
+        v = m / d[:, None]
+    m = _product(v, Qp)
+    ratio = _row_sum(v * m) / np.maximum(_row_sum(v * v), f32(1e-30))
+    inv_L = f32(1) / ((np.maximum(ratio, f32(1e-12)) + l2) * f32(1.01))
+    thr = l1 * inv_L
+    w = z = _prox(pad(w0), thr, positive)
+    t, it = 1.0, 0
+    valid = np.arange(kp) < k
+    while it < max_iter:
+        it += 1
+        t_new = 0.5 * (1.0 + np.sqrt(1.0 + 4.0 * t * t))
+        f = f32((t - 1.0) / t_new)
+        t = t_new
+        g = (_product(z, Qp) - q) + l2 * z
+        w_new = _prox(z - g * inv_L, thr, positive)
+        z, w = w_new + f * (w_new - w), w_new
+        if it % 5 == 0:
+            H = _product(w, Qp)
+            qdw, wH = _row_sum(w * q), _row_sum(w * H)
+            l1n, ww = _row_sum(np.abs(w)), _row_sum(w * w)
+            xta = (q - H) - l2 * w
+            dn = _row_sum(np.where(valid, xta if positive else np.abs(xta),
+                                   f32(-np.inf)), np.maximum)
+            R = (y2 + wH) - f32(2) * qdw
+            over = dn > l1
+            sc = np.where(over, l1 / np.where(dn != 0, dn, f32(1)), f32(1))
+            s2 = sc * sc
+            gap = np.where(over, f32(0.5) * (R + R * s2), R)
+            gap = gap + (((l1 * l1n - sc * y2) + sc * qdw)
+                         + (f32(0.5) * l2 * (f32(1) + s2)) * ww)
+            if not np.sum(~(gap < f32(tol) * y2)):
+                break
+    return w[:, :k], it
+
+
+# codes at a fixed count: the emulation against the plain version and
+# modl_tpu, relative to max |w| (float32 sums in another order carried
+# through 100 iterations: the readings are 4e-8 to 1.0e-5, and the plain
+# version and modl_tpu differ by up to 1.2e-5); chip_smoke.py's
+# FISTA_RTOL holds the kernel to the same bound
+EMULATION_RTOL = 3e-5
+
+
+@pytest.mark.parametrize('positive', [False, True])
+@pytest.mark.parametrize('k', [5, 70, 128])
+def test_register_order_matches_the_plain_version_and_jax(k, positive):
+    w0, Q, q, y2 = _problem(5, True, np.float32, b=12, k=k, n=40)
+    params = (0.1, 0.05, positive, 100, 0.0)
+    got, iters = _emulate_registers(w0, Q, q, y2, *params)
+    assert iters == 100
+    plain = to_np(fista.fista_gram_reference(*map(T, (w0, Q, q, y2)),
+                                             *params))
+    want = np.asarray(jsolvers.fista_gram(*map(jnp.asarray,
+                                               (w0, Q, q, y2)), *params))
+    scale = np.abs(want).max()
+    assert scale > 0 and np.count_nonzero(want) < want.size
+    np.testing.assert_allclose(got, plain, rtol=0,
+                               atol=EMULATION_RTOL * scale)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=EMULATION_RTOL * scale)
+
+
+@pytest.mark.parametrize('positive', [False, True])
+@pytest.mark.parametrize('k', [5, 70, 128])
+def test_register_order_stops_with_the_plain_version(k, positive):
+    """At the solvers' tol the emulation stops at the plain version's
+    check, or one check from it."""
+    w0, Q, q, y2 = _problem(6, True, np.float32, b=12, k=k, n=40)
+    params = (0.1, 0.05, positive, 2000, 1e-2)
+    _, iters = _emulate_registers(w0, Q, q, y2, *params)
+    agree, calls = _counting()
+    fista.fista_gram_reference(*map(T, (w0, Q, q, y2)), *params,
+                               agree=agree)
+    assert abs(iters - fista.CHECK_EVERY * len(calls)) <= fista.CHECK_EVERY
+    assert iters < 2000
