@@ -38,6 +38,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    (none), a held-out objective below the initial dictionary's, agreement
    with the gate-off fit and with a refit through the plain BCD path, and
    samples/s;
+   then step_graph: the step program (``decomposition/_program.py``)
+   against the eager step at ADHD-70 width as ``partial_fit`` takes it
+   (gather subsets) with ridge codes, l1 codes, the 'average'
+   aggregators (FISTA on per-row Grams) and the 'full' ones, and at the
+   image fit's step (k=128, 16 x 16 patches, reduction 8, Binomial
+   sizes, FISTA, batch 200): 20 steps from one carried state and one
+   set of draws, every leaf bitwise equal, the replays under
+   ``torch.cuda.set_sync_debug_mode('error')``, BCD and FISTA launches
+   equal; the host us to issue a step each way (draws and scalars,
+   staging, replay) with the card idle, the card's ms a step over 20
+   back to back, the capture's seconds and the graph pool's MB; then
+   ``partial_fit`` with a callback (one capture, every step a replay);
    then adhd70_l1: the same fit with DictFact's default l1 codes (FISTA
    on the card): one FISTA and one BCD launch a step, every solve with
    host reads forbidden, and a refit with both kernels' plain versions
@@ -57,7 +69,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    ``partial_fit``), resumed bitwise equal to the uninterrupted fit;
 5. hcp1024: one epoch (6 steps) of the HCP-1024 configuration through
    the kernel block driver, with the same launch counts, gate on and off,
-   and samples/s;
+   and samples/s; then step_graph at HCP-1024 (gather subsets, the
+   block driver's 4 calls a step);
    then offload: the HCP-1024 configuration with ``Dx_agg=G_agg=
    'average'``, one epoch with ``average_offload=True`` (G_avg, 5.03 GB,
    in pinned host RAM; 6 segments of one batch; BCD launches as
@@ -123,8 +136,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 11. image: ``ImageDictFact.fit`` at ``exps/exp_decompose_images.py``'s
    configuration (k=128, 16 x 16 patches, reduction 8, batch 200) on a
    768 x 1,024 grey synthetic image (the face's size; ~760k patches,
-   gathered buffer by buffer), one epoch: one BCD and one FISTA launch a
-   step, every solve with host reads forbidden, held-out score below the
+   gathered buffer by buffer), one epoch: every full batch through the
+   step program (``path=graph``, one capture), one BCD and one FISTA
+   launch a step, every step with host syncs forbidden (staging,
+   capture, replays and the eager short batch), held-out score below the
    initial dictionary's, agreement with a refit through both kernels'
    plain versions on a 20,000-patch subset, patches/s and the steps'
    seconds; the card's idle share and the FISTA and BCD kernels' device
@@ -163,6 +178,16 @@ result where no CUDA device is visible.
 process ADHD-70 and HCP-1024 fits and phase mesh alone (on a machine
 with four cards, its legs over NCCL across them), then the device line.
 
+``python3 chip_smoke.py --step-graph-only`` runs phases 1, 2 and
+step_graph alone, then the device line.
+
+``python3 chip_smoke.py --ab-step-graph TREE [TREE ...]`` times the image
+workload's fits of several checkouts in turns on one card through
+``modl_tpu_torch/benchmarks/ab_image_fit.py`` (each leg a fresh process
+on that checkout's package: three fits of the 20,000-patch subset after
+a warm-up, then one face-size epoch; wall and step seconds, and the
+steps taken through the step program); give them as A B B A.
+
 ``python3 chip_smoke.py --ab-fista TREE [TREE ...]`` times the FISTA
 kernel of several checkouts in turns on one card (each TREE the root of
 one, for example a ``git archive`` of another commit unpacked under
@@ -180,6 +205,7 @@ returns without waiting for the card) at the image shape, and how many
 cases give codes bitwise equal to each tree's first leg.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -328,14 +354,21 @@ FMRI_NIFTI = dict(method='masked', n_components=70, reduction=12,
                   detrend=False, random_state=0)
 NIFTI_EPOCHS = 2
 NIFTI_RTOL = 1e-5
-# the image subset fit's steps profiled for the idle share (of its 100)
+# the image subset fit's steps profiled for the idle share (of its 100),
+# and the least idle gap of the card counted there (a step's host issue
+# is ~0.3 ms)
 IMAGE_WINDOW = (20, 90)
+WINDOW_GAP_MS = 0.5
 # the HCP driver pipeline's volumes: two of 400 frames (two full batches
 # of 200 a record, so that a deferred-B segment ends in each)
 HCP_DRIVER_VOLUMES, HCP_DRIVER_FRAMES = 2, 400
 # --ab-fista: launches timed a solve, the image shape's fixed iteration
 # counts, host-timed launches of the entry point a leg
 AB_REPS, AB_SWEEP, AB_HOST_LAUNCHES = 20, (0, 4, 5, 50, 100, 200), 200
+# phase step_graph: steps a leg runs eagerly and through the step
+# program (then again for the card's time a step), and host-timed steps
+# of each path with the card idle at each call
+GRAPH_STEPS, GRAPH_HOST_STEPS = 20, 10
 # rounds of on, off, off, on fits in the ADHD-70 leg's gate A/B: the
 # kernel's ~1 ms over 6 segment ends sits inside one fit's spread (~32
 # ms +- 1.5); the HCP-1024 leg's ~15 ms stands out in one round
@@ -483,12 +516,14 @@ def blocked_recsys_case(bcd, seed):
 @contextlib.contextmanager
 def plain_bcd():
     """The BCD kernel's wrapper swapped for its plain version, which then
-    runs on the card, for a kernel-off refit; restored after."""
+    runs on the card, for a kernel-off refit; restored after. Its steps
+    run eagerly (``eager_steps``)."""
     from modl_tpu_torch.ops import bcd
     saved = bcd.bcd_update
     bcd.bcd_update = bcd.bcd_update_reference
     try:
-        yield
+        with eager_steps():
+            yield
     finally:
         bcd.bcd_update = saved
 
@@ -502,9 +537,49 @@ def plain_fista():
     saved = solvers.fista_gram
     solvers.fista_gram = fista.fista_gram_reference
     try:
-        yield
+        with eager_steps():
+            yield
     finally:
         solvers.fista_gram = saved
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """No configuration runs as a step program (``_program.capturable``
+    says no): for the kernel-off refits, whose plain versions read values
+    back (the BCD's atom order, FISTA's count), which a captured step
+    cannot; restored after."""
+    from modl_tpu_torch.decomposition import _program
+    saved = _program.capturable
+    _program.capturable = lambda cfg: False
+    try:
+        yield
+    finally:
+        _program.capturable = saved
+
+
+@contextlib.contextmanager
+def steps_without_host_reads():
+    """Every ``DictFact`` step (the step program's staging, capture and
+    replay, or the eager step) run under
+    ``torch.cuda.set_sync_debug_mode('error')``: a step that waits for
+    the card raises."""
+    import torch
+    from modl_tpu_torch.decomposition.dict_fact import DictFact
+    saved = DictFact._step_batch
+
+    def guarded(self, *args, **kwargs):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return saved(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+
+    DictFact._step_batch = guarded
+    try:
+        yield
+    finally:
+        DictFact._step_batch = saved
 
 
 @contextlib.contextmanager
@@ -887,6 +962,257 @@ def adhd70_l1_phase(X, X_test):
         raise RuntimeError(f'ADHD-70 l1: kernel and plain fits differ: '
                            f'rel {rel}')
     return df.components_, (launches, ema), fista_launches
+
+
+def clone_state(st):
+    """A copy of a learner state: its tensors cloned, its generator
+    carrying the same state (so both draw alike)."""
+    import torch
+    from modl_tpu_torch.decomposition._step import SomfState
+    gen = torch.Generator()
+    gen.set_state(st.gen.get_state())
+    return SomfState(**{
+        f.name: (getattr(st, f.name).clone()
+                 if torch.is_tensor(getattr(st, f.name))
+                 else getattr(st, f.name))
+        for f in dataclasses.fields(SomfState) if f.name != 'gen'}, gen=gen)
+
+
+def graph_pool_mb(graph):
+    """MB of the device memory segments of a captured graph's pool."""
+    import torch
+    pool = tuple(graph.pool())
+    return sum(seg['total_size'] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get('segment_pool_id', ())) == pool) / 2 ** 20
+
+
+def noop_callback(est):
+    """A fit callback that does nothing: with it ``DictFact`` steps batch
+    by batch (``_step_batch``)."""
+
+
+def image_rows(n_rows):
+    """``n_rows`` patches of the synthetic face-size image as the image
+    fit's learner sees them, and that learner's parameters."""
+    from modl_tpu_torch import ImageDictFact
+    from modl_tpu_torch.benchmarks.workloads import IMAGE, IMAGE_SHAPE
+    from modl_tpu_torch.datasets.image import make_synthetic_image
+    from modl_tpu_torch.feature_extraction.image import \
+        LazyCleanPatchExtractor
+    img = ImageDictFact(**IMAGE, device='cuda')
+    patches = LazyCleanPatchExtractor(
+        patch_size=IMAGE['patch_size'], max_patches=n_rows,
+        random_state=IMAGE['random_state']).fit(
+            make_synthetic_image(*IMAGE_SHAPE)).transform()
+    kw = img._learner().get_params()
+    del kw['callback'], kw['device']
+    return np.ascontiguousarray(img._as_rows(patches), np.float32), kw
+
+
+def step_graph_leg(label, kw, X):
+    """``kw``'s ``DictFact`` prepared on ``X`` (gather subsets, as
+    ``partial_fit`` takes them): GRAPH_STEPS steps from one carried state
+    with one set of draws through ``somf_step`` and through a
+    ``StepProgram`` (the first runs eagerly and captures, the others
+    replay under ``set_sync_debug_mode('error')``), every leaf held
+    bitwise; host us to issue a step with the card idle, the card's ms a
+    step over GRAPH_STEPS back to back, capture seconds and the pool's
+    MB; then ``partial_fit`` with a callback over GRAPH_STEPS batches
+    through the estimator: one capture, every step on the program, one
+    BCD launch a step and block, one FISTA launch a step for l1 codes.
+    Returns the leg's numbers."""
+    import statistics
+
+    import torch
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.decomposition import _program, _step
+    from modl_tpu_torch.ops import bcd, fista
+    leg_t0 = time.perf_counter()
+    b, n = kw['batch_size'], X.shape[0]
+    df = DictFact(**kw, device='cuda').prepare(n_samples=n, X=X)
+    cfg = df._cfg
+    if cfg.windowed or not _program.capturable(cfg):
+        raise RuntimeError(f'step_graph {label}: the configuration does '
+                           'not run as a step program')
+    X_dev = torch.as_tensor(X).cuda()
+
+    def batch(t):
+        lo = (t * b) % (n - n % b)
+        return X_dev[lo:lo + b], torch.arange(lo, lo + b, device='cuda')
+
+    def launches():
+        return bcd.LAUNCHES, fista.LAUNCHES
+
+    eager, graph = clone_state(df._state), clone_state(df._state)
+    del df
+    staging = _step.DrawStaging('cuda')
+    c0 = launches()
+    for t in range(GRAPH_STEPS):
+        _step.somf_step(eager, *batch(t), cfg, staging)
+    torch.cuda.synchronize()
+    c1 = launches()
+    l1 = cfg.code_l1_ratio != 0
+    # the last launches' scratch: BCD exchanges, FISTA iterations
+    scratch_eager = (bcd.last_exchanges(),
+                     fista.last_iterations() if l1 else None)
+    prog = _program.StepProgram(graph, cfg, b)
+    t0 = time.perf_counter()
+    prog.step(*batch(0))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for t in range(1, GRAPH_STEPS):
+            prog.step(*batch(t))
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    c2 = launches()
+    # read from the graph pool's scratch, written by the last replay
+    scratch_graph = (bcd.last_exchanges(),
+                     fista.last_iterations() if l1 else None)
+    diffs = {}
+    for name in ('D', 'C', 'B', 'G', 'comp_norm', 'code', 'Dx_avg',
+                 'G_avg', 'sample_n_iter'):
+        a, e = getattr(graph, name), getattr(eager, name)
+        if a is not None:
+            diffs[name] = float((a.double() - e.double()).abs().max())
+    bitwise = all(d == 0.0 for d in diffs.values())
+    eager_launches = tuple(y - x for x, y in zip(c0, c1))
+    graph_launches = tuple(y - x for x, y in zip(c1, c2))
+
+    def host_us(step):
+        """Median host us of ``step(t)``'s parts (a list of their
+        seconds), the card idle at each call."""
+        parts = []
+        for t in range(GRAPH_HOST_STEPS):
+            torch.cuda.synchronize()
+            parts.append(step(t))
+        torch.cuda.synchronize()
+        return [1e6 * statistics.median(p) for p in zip(*parts)]
+
+    def card_ms(step):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for t in range(GRAPH_STEPS):
+            step(t)
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / GRAPH_STEPS
+
+    def eager_step(t):
+        X_b, idx = batch(t)
+        t0 = time.perf_counter()
+        _step.somf_step(eager, X_b, idx, cfg, staging)
+        return [time.perf_counter() - t0]
+
+    def graph_step(t):
+        """``prog.step`` in its parts: the host draws and scalars, the
+        staging, the replay, and the whole."""
+        X_b, idx = batch(t)
+        t0 = time.perf_counter()
+        subset, n_valid, order = _step.draw_step(graph, cfg)
+        scalars = _step.step_scalars(graph, cfg, b, n_valid)
+        t1 = time.perf_counter()
+        prog.stage(X_b, idx, (subset, order), scalars)
+        t2 = time.perf_counter()
+        prog.run()
+        t3 = time.perf_counter()
+        return [t1 - t0, t2 - t1, t3 - t2, t3 - t0]
+
+    draw_us, stage_us, replay_us, graph_us = host_us(graph_step)
+    timed = dict(eager_host_us=host_us(eager_step)[0], graph_host_us=graph_us,
+                 draw_us=draw_us, stage_us=stage_us, replay_us=replay_us,
+                 eager_ms=card_ms(eager_step), graph_ms=card_ms(graph_step))
+    pool_mb = graph_pool_mb(prog.graph)
+    capture_s = prog.capture_s
+    del prog, eager, graph, staging
+    # the estimator's interactive path
+    captures, steps0 = _program.CAPTURES, _program.STEPS
+    c0 = launches()
+    est = DictFact(**kw, callback=noop_callback, device='cuda').prepare(
+        n_samples=n, X=X)
+    rows = min(n - n % b, GRAPH_STEPS * b)
+    est.partial_fit(X[:rows], sample_indices=np.arange(rows))
+    torch.cuda.synchronize()
+    fit_launches = tuple(y - x for x, y in zip(c0, launches()))
+    captures = _program.CAPTURES - captures
+    fit_steps = _program.STEPS - steps0
+    blocks = bcd_blocks(cfg)
+    want = (rows // b * blocks, rows // b if l1 else 0)
+    phase('step_graph', leg=label, k=cfg.n_components, batch=b,
+          len_subset=cfg.len_subset, len_max=cfg.len_max,
+          Dx_agg=cfg.Dx_agg, G_agg=cfg.G_agg,
+          code='fista' if l1 else 'ridge', blocks=blocks,
+          steps=GRAPH_STEPS, bitwise=bitwise,
+          max_abs_diff=','.join(f'{k}:{v:.3e}' for k, v in diffs.items()),
+          launches_eager='/'.join(map(str, eager_launches)),
+          launches_graph='/'.join(map(str, graph_launches)),
+          host_syncs_in_replays=0,
+          exchanges='/'.join(map(str, (scratch_eager[0], scratch_graph[0]))),
+          fista_iterations='/'.join(map(str, (scratch_eager[1],
+                                               scratch_graph[1]))),
+          **{key: f'{v:.1f}' if key.endswith('us') else f'{v:.4f}'
+             for key, v in timed.items()},
+          first_step_s=f'{first_s:.4f}', capture_s=f'{capture_s:.4f}',
+          pool_MB=f'{pool_mb:.1f}', fit_path='graph' if fit_steps == rows
+          // b else 'eager', fit_captures=captures, fit_steps=fit_steps,
+          fit_launches='/'.join(map(str, fit_launches)),
+          leg_s=f'{time.perf_counter() - leg_t0:.2f}')
+    if scratch_graph != scratch_eager or not scratch_graph[0]:
+        raise RuntimeError(f'step_graph {label}: the last launches\' '
+                           f'scratch reads {scratch_graph} after the '
+                           f'replays, {scratch_eager} after the eager steps')
+    if not bitwise:
+        raise RuntimeError(f'step_graph {label}: the captured steps differ '
+                           f'from the eager steps: {diffs}')
+    per_run = (GRAPH_STEPS * blocks, GRAPH_STEPS if l1 else 0)
+    if eager_launches != per_run or graph_launches != per_run:
+        raise RuntimeError(f'step_graph {label}: launches {eager_launches} '
+                           f'eager and {graph_launches} captured, expected '
+                           f'{per_run}')
+    if (captures, fit_steps, fit_launches) != (1, rows // b, want):
+        raise RuntimeError(f'step_graph {label}: partial_fit took '
+                           f'{fit_steps} of {rows // b} steps through the '
+                           f'program with {captures} captures and '
+                           f'{fit_launches} launches, expected one capture '
+                           f'and {want}')
+    return dict(timed, capture_s=capture_s, pool_mb=pool_mb)
+
+
+def step_graph_phase(legs):
+    """Phase step_graph over ``legs`` ((label, DictFact parameters, X)
+    each)."""
+    return {label: step_graph_leg(label, kw, X) for label, kw, X in legs}
+
+
+def adhd_graph_legs(X):
+    """The ADHD-70 configuration as ``partial_fit`` takes it (gather
+    subsets) with ridge codes, l1 codes (FISTA), the 'average'
+    aggregators with l1 codes (FISTA on per-row Grams; ridge there is not
+    capturable) and the 'full' ones with ridge codes."""
+    kw = {key: v for key, v in ADHD.items() if key != 'subset_sampling'}
+    return [('adhd70_ridge', kw, X),
+            ('adhd70_l1', dict(kw, code_l1_ratio=1.0), X),
+            ('adhd70_average', dict(kw, Dx_agg='average', G_agg='average',
+                                    code_l1_ratio=1.0), X),
+            ('adhd70_full', dict(kw, Dx_agg='full', G_agg='full'), X)]
+
+
+def image_graph_leg():
+    """The image fit's step (k=128, 16 x 16 patches, reduction 8, Binomial
+    sizes, FISTA, batch 200) on GRAPH_STEPS batches of its patches."""
+    X, kw = image_rows(GRAPH_STEPS * 200)
+    return [('image', kw, X)]
+
+
+def hcp_graph_leg(X):
+    """The HCP-1024 configuration as ``partial_fit`` takes it (gather
+    subsets, the BCD block driver), over the 1,200 rows in turn."""
+    kw = {key: v for key, v in HCP.items() if key != 'subset_sampling'}
+    return [('hcp1024', kw, X)]
 
 
 def ema_case(ema_gemm, k, m, n, seed):
@@ -1571,14 +1897,18 @@ class ProfiledSteps:
 
     def summary(self):
         """(wall s, device busy s, host reads, {kernel: (device ms,
-        launches)}) of the window, for the FISTA and BCD kernels."""
-        from modl_tpu_torch.utils.profiling import device_summary
+        launches)}, the host's waits for the card by call, (count, ms)
+        of the card's idle gaps of WINDOW_GAP_MS or more) of the window,
+        for the FISTA and BCD kernels."""
+        from modl_tpu_torch.utils.profiling import (device_summary,
+                                                    host_waits, idle_gaps)
         busy, _, reads, device = device_summary(self.prof)
         kernels = {name: (sum(e.self_device_time_total for e in device
                               if name in e.key) / 1e3,
                           sum(e.count for e in device if name in e.key))
                    for name in ('fista_kernel', 'bcd_kernel')}
-        return self.wall, busy, reads, kernels
+        return (self.wall, busy, reads, kernels, host_waits(self.prof),
+                idle_gaps(self.prof, WINDOW_GAP_MS))
 
 
 def image_phase():
@@ -1591,6 +1921,7 @@ def image_phase():
                                                      IMAGE_SUBSET,
                                                      IMAGE_TEST, image_steps)
     from modl_tpu_torch.datasets.image import make_synthetic_image
+    from modl_tpu_torch.decomposition import _program
     from modl_tpu_torch.feature_extraction.image import \
         LazyCleanPatchExtractor
     from modl_tpu_torch.ops import bcd, fista
@@ -1602,20 +1933,28 @@ def image_phase():
     init = ImageDictFact(**IMAGE, n_epochs=0, device='cuda').fit(image)
     score0 = init.score(test)
     bcd.LAUNCHES = fista.LAUNCHES = 0
+    captures, graph_steps = _program.CAPTURES, _program.STEPS
     est = ImageDictFact(**IMAGE, n_epochs=1, device='cuda')
-    with fista_without_host_reads():
+    with steps_without_host_reads():
         seconds = timed_fit(est, image)
     launches, fista_launches = bcd.LAUNCHES, fista.LAUNCHES
+    captures = _program.CAPTURES - captures
+    graph_steps = _program.STEPS - graph_steps
     score = est.score(test)
     n_rows = est.n_iter_
     steps = image_steps(n_rows, est)
+    # the batches short of batch_size (one a buffer with a remainder)
+    # step eagerly
+    short = image_steps(n_rows, est) - n_rows // est.batch_size
+    path = 'graph' if graph_steps == steps - short else 'eager'
     cfg = est.dict_fact_._cfg
     sub = dict(IMAGE, n_epochs=1, max_patches=IMAGE_SUBSET, device='cuda')
     # the subset fit's steady steps under the profiler
     window = ProfiledSteps(*IMAGE_WINDOW, os.path.join(
         REPO, 'build', 'chip_smoke_trace', 'image'))
     kernel_sub = ImageDictFact(**sub, callback=window).fit(image)
-    window_s, busy, window_reads, window_kernels = window.summary()
+    window_s, busy, window_reads, window_kernels, waits, gaps = \
+        window.summary()
     bcd.LAUNCHES = fista.LAUNCHES = 0
     plain_sub = ImageDictFact(**sub)
     with plain_bcd(), plain_fista():
@@ -1634,8 +1973,10 @@ def image_phase():
     phase('image', image=f'{IMAGE_SHAPE[0]}x{IMAGE_SHAPE[1]}',
           patches=n_rows, features=est.dict_fact_._n_features,
           len_subset=cfg.len_subset, len_max=cfg.len_max,
-          steps=steps, bcd_launches=launches, fista_launches=fista_launches,
-          host_reads_in_solves=0, launches_plain=plain_launches,
+          steps=steps, path=path, graph_steps=graph_steps,
+          eager_steps=steps - graph_steps, captures=captures,
+          bcd_launches=launches, fista_launches=fista_launches,
+          host_reads_in_steps=0, launches_plain=plain_launches,
           score=f'{score:.6g}',
           score_init=f'{score0:.6g}', subset=IMAGE_SUBSET,
           subset_score=f'{score_k:.6g}', subset_score_plain=f'{score_p:.6g}',
@@ -1650,6 +1991,9 @@ def image_phase():
           window_s=f'{window_s:.4f}', window_device_busy_s=f'{busy:.4f}',
           idle_share=f'{1 - busy / window_s:.4f}',
           window_host_reads=window_reads,
+          window_host_waits=','.join(f'{k}:{v}' for k, v in waits.items())
+          or None, window_idle_gaps=gaps[0],
+          window_idle_gaps_ms=f'{gaps[1]:.3f}',
           **{f'window_{name}_ms': f'{ms:.3f}'
              for name, (ms, _) in window_kernels.items()},
           **{f'window_{name}_launches': n
@@ -1661,6 +2005,11 @@ def image_phase():
                            f'{fista_launches} and {nmf_fista} FISTA '
                            f'launches ({plain_launches} plain), expected '
                            f'{steps} and {nmf_steps} each (0)')
+    if (path, captures) != ('graph', 1):
+        raise RuntimeError(f'image: {graph_steps} of {steps} steps through '
+                           f'the step program ({short} short batches), '
+                           f'{captures} captures; expected every full batch '
+                           'and one capture')
     if not (math.isfinite(score) and score < score0):
         raise RuntimeError(f'image: held-out score {score} not below the '
                            f'initial {score0}')
@@ -2451,13 +2800,26 @@ def ab_fista(trees):
     return 0
 
 
+def ab_step_graph(trees):
+    """``--ab-step-graph``: the image fits of each checkout in turns
+    (``modl_tpu_torch/benchmarks/ab_image_fit.py`` of this one), each
+    leg its own process."""
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device visible', file=sys.stderr)
+        return 1
+    return subprocess.run([sys.executable, os.path.join(
+        REPO, 'modl_tpu_torch', 'benchmarks', 'ab_image_fit.py'),
+        *trees]).returncode
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible', file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, REPO)
-    import dataclasses
 
     from modl_tpu_torch import DictFact
     from modl_tpu_torch.benchmarks import launch_overhead
@@ -2485,6 +2847,18 @@ def main():
             print('  ptxas: ' + line.strip(), flush=True)
     if sys.argv[1:] == ['--mesh-only']:
         return mesh_only_main(name)
+    if sys.argv[1:] == ['--step-graph-only']:
+        X, _ = adhd_data()
+        legs = adhd_graph_legs(X) + image_graph_leg()
+        step_graph_phase(legs)
+        del X, legs
+        step_graph_phase(hcp_graph_leg(np.random.RandomState(0).randn(
+            HCP_SAMPLES, N_FEATURES).astype(np.float32)))
+        print(smi, flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': name,
+            'count': torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. the kernel against its plain version
     results = [kernel_case(bcd, *case, seed=i)
@@ -2556,6 +2930,9 @@ def main():
     adhd_ref = (df.components_, (launches, ema_on))
     del df, off, plain
 
+    # 4-. the SOMF step as one captured graph, against the eager step
+    step_graph_phase(adhd_graph_legs(X) + image_graph_leg())
+
     # 4a. DictFact's default codes (l1, FISTA) at ADHD-70 width
     *adhd_l1, adhd_l1_fista = adhd70_l1_phase(X, X_test)
 
@@ -2602,6 +2979,7 @@ def main():
         raise RuntimeError('HCP-1024 dictionary not finite')
     hcp_ref = (df.components_, (hcp_launches, ema_on))
     del df, off, D
+    step_graph_phase(hcp_graph_leg(X))
 
     # 5b. average_offload: G_avg in pinned host RAM at HCP-1024 width
     offload_launches = offload_phase(
@@ -2668,6 +3046,7 @@ def main():
                            f'{sorted(unchecked)}, which phase fista does '
                            'not hold against the plain version')
 
+    phase('done', seconds=f'{time.perf_counter() - t_start:.1f}')
     print(smi, flush=True)          # the card again, near the end
     print(json.dumps({'kernels': [{
         'name': 'bcd_update', 'route': 'cuda',
@@ -2730,4 +3109,6 @@ if __name__ == '__main__':
                               int(sys.argv[3])))
     if sys.argv[1:2] == ['--ab-fista'] and sys.argv[2:]:
         sys.exit(ab_fista(sys.argv[2:]))
+    if sys.argv[1:2] == ['--ab-step-graph'] and sys.argv[2:]:
+        sys.exit(ab_step_graph(sys.argv[2:]))
     sys.exit(main())

@@ -1,4 +1,4 @@
-"""The image workload's subset fit timed on several checkouts, on one GPU.
+"""The image workload's fits timed on several checkouts, on one GPU.
 
     python modl_tpu_torch/benchmarks/ab_image_fit.py TREE [TREE ...]
 
@@ -8,11 +8,15 @@ TREE, in the order given, a fresh Python process imports that checkout's
 ``modl_tpu_torch`` (building its kernels), fits ``ImageDictFact`` once as
 a warm-up on the image workload's 20,000-patch subset (``workloads.py``:
 one epoch, 100 steps of the per-step ``DictFact`` path), then times
-``REPEATS`` more fits. Each timed fit prints one line: the tree, the
-fit's wall time and ``time_`` (the time inside the steps). Give the
-trees as A B B A so that a drift of the host hits both alike. Prints the
-card's name and power limit first.
+``REPEATS`` more fits, then one epoch of the face-size fit (~760k
+patches, 3,799 steps). Each timed fit prints one line: the tree, the
+fit's wall time, ``time_`` (the time inside the steps), and the steps
+the checkout's step program ran and the graphs it captured (``None``
+for a checkout without ``decomposition/_program.py``). Give the trees as
+A B B A so that a drift of the card or the host hits both alike. Prints
+the card's name and power limit first.
 """
+import importlib
 import os
 import subprocess
 import sys
@@ -22,29 +26,43 @@ REPEATS = 3
 
 
 def leg(tree):
-    """Time the image subset fit with ``tree``'s package."""
+    """Time the image fits with ``tree``'s package."""
     sys.path[0] = tree
     import torch
     import modl_tpu_torch
     from modl_tpu_torch import ImageDictFact
     from modl_tpu_torch.benchmarks import workloads as wl
     from modl_tpu_torch.datasets.image import make_synthetic_image
+    try:
+        program = importlib.import_module(
+            'modl_tpu_torch.decomposition._program')
+    except ImportError:
+        program = None
+
+    def counts():
+        return ((program.STEPS, program.CAPTURES) if program is not None
+                else (None, None))
 
     print(f'tree={tree} package={modl_tpu_torch.__file__}', flush=True)
     image = make_synthetic_image(*wl.IMAGE_SHAPE)
-    for rep in range(REPEATS + 1):
-        img = ImageDictFact(**dict(wl.IMAGE, n_epochs=1,
-                                   max_patches=wl.IMAGE_SUBSET),
+    fits = [('subset', dict(max_patches=wl.IMAGE_SUBSET))] * (REPEATS + 1)
+    for rep, (name, extra) in enumerate(fits + [('face', {})]):
+        img = ImageDictFact(**dict(wl.IMAGE, n_epochs=1, **extra),
                             device='cuda')
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img.fit(image)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        after = counts()
+        graph = [None if a is None else a - b
+                 for a, b in zip(after, before)]
         if rep:
-            print(f'tree={tree} fit={rep} wall_s={wall:.4f} '
+            print(f'tree={tree} fit={name} wall_s={wall:.4f} '
                   f'steps_s={img.time_:.4f} '
-                  f'steps={wl.image_steps(wl.IMAGE_SUBSET, img)}',
+                  f'steps={wl.image_steps(img.n_iter_, img)} '
+                  f'graph_steps={graph[0]} captures={graph[1]}',
                   flush=True)
     return 0
 

@@ -1,6 +1,6 @@
 // Grid barrier on a counter of arrivals (bcd_update.cu) and the
 // cooperative launch of the persistent-grid kernels (bcd_update.cu,
-// fista_gram.cu).
+// fista_gram.cu), eager or under stream capture.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,7 +77,12 @@ static inline cudaError_t coop_max_grid(const void* kern, int dev,
 
 // Launch `kern` as a cooperative grid of `grid` blocks of `threads`
 // threads with `smem` bytes of dynamic shared memory on `stream`;
-// refuses a grid larger than the card holds at once.
+// refuses a grid larger than the card holds at once. The launch goes
+// through cudaLaunchKernelExC with the cooperative attribute, which a
+// stream capture records as a cooperative kernel node: a replayed graph
+// launches the grid with all its blocks resident, as the counter barrier
+// needs. The occupancy queries are not stream work, and the first (eager)
+// step fills the table before any capture.
 static inline cudaError_t launch_cooperative(const void* kern, int grid,
                                              int threads, size_t smem,
                                              void** args, void* stream) {
@@ -105,8 +110,17 @@ static inline cudaError_t launch_cooperative(const void* kern, int grid,
     }
   }
   if (grid > max_grid) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), args,
-                                    smem, (cudaStream_t)stream);
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  config.attrs = &coop;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelExC(&config, kern, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

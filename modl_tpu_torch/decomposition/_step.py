@@ -12,11 +12,17 @@ RAM. ``state_to_numpy``/``state_from_numpy`` carry the state to the
 host and back under the JAX package's field names (pickles,
 checkpoints). PyTorch runs eagerly, so the
 state is a plain dataclass of tensors (it carries no gradients) updated
-in place where JAX's immutability forced copies: the windowed D
-write-back, the B EMA, the per-sample statistics and the deferred-B
-buffers. Draws (window starts, Binomial sizes, atom orders) are made on
-a host generator ahead of the step, and the batch weight is a host
-float, so a step reads nothing back from the device.
+in place where JAX's immutability forced copies: every leaf keeps its
+tensor (and its address) across steps, which the captured step of
+``_program.py`` relies on. Draws (window starts, Binomial sizes, atom
+orders) are made on a host generator ahead of the step, and the step's
+scalars (the batch weight and what derives from it, the Binomial size)
+are computed on the host (:func:`step_scalars`). ``somf_step`` sends a
+step's subset, order and scalars to the device in one non-blocking copy
+from pinned memory (:class:`DrawStaging`), so the step body
+(``_step_body``) takes every value that changes from step to step from
+device tensors, reads nothing back and never makes the host wait for
+the card.
 
 On a mesh (``cfg.mesh``, a state sharded by ``parallel.mesh.
 shard_state``) the same step body runs on every rank over its shards,
@@ -140,6 +146,7 @@ def _subset_cols(A, subset, width, cfg):
 
 
 def _valid_mask(width, n_valid, dtype, device):
+    """1 on the columns below ``n_valid`` (a 0-d device tensor), else 0."""
     return (torch.arange(width, device=device) < n_valid).to(dtype)
 
 
@@ -473,8 +480,10 @@ def _bcd_blocks(D_subset, grad_subset, C, comp_norm, order, comp_pos,
     for start in range(0, k, block):
         ob = order[start:start + block]
         C_rows = C[ob]
+        # index_fill_ takes the 0 as a kernel argument: an indexed
+        # assignment of a Python number copies it from host memory
         out_mask = torch.ones(k, dtype=C.dtype, device=C.device)
-        out_mask[ob] = 0.0
+        out_mask.index_fill_(0, ob.to(torch.int64), 0.0)
         G_blk = grad_subset[ob] - (C_rows * out_mask[None, :]) @ D_subset
         D_blk, cn_blk = bcd.bcd_update(
             D_subset[ob], G_blk, C_rows[:, ob].contiguous(), comp_norm[ob],
@@ -498,11 +507,13 @@ def bcd_kernel(D_subset, grad_subset, C, comp_norm, order, comp_pos,
                        comp_pos, l1_ratio)
 
 
-def _update_dict(D, G, comp_norm, C, grad_subset, subset, w, order, cfg,
-                 n_features, ctx, n_valid=None):
+def _update_dict(D, G, comp_norm, C, grad_subset, subset, w_step, order,
+                 cfg, n_features, ctx, n_valid=None):
     """Block coordinate descent on the subset columns (dict_fact.py:650-715
-    of the reference). Writes the new columns into ``D`` in place and
-    returns ``(G, comp_norm)``.
+    of the reference). Writes the new columns into ``D``, the new
+    ``comp_norm`` into its tensor and, under ``G_agg='full'``, the new
+    Gram into ``G``, all in place. ``w_step`` is the 0-d ``w *
+    step_size`` of the ``sgd`` optimizer.
 
     On a mesh the (k, s) block is reassembled whole on every rank, which
     updates it alike (the BCD kernel launched by every rank) and writes
@@ -524,44 +535,129 @@ def _update_dict(D, G, comp_norm, C, grad_subset, subset, w, order, cfg,
         D_subset = D_cols
     incremental_G = cfg.G_agg == 'full' and s < n_features / 2.0
     if incremental_G:
-        G = G - D_subset @ D_subset.T
-    comp_norm = comp_norm.clone()
+        G_new = G - D_subset @ D_subset.T
+    cn = comp_norm.clone()
 
     if cfg.optimizer == 'variational' and cfg.use_kernel:
-        D_subset, comp_norm = bcd_kernel(D_subset, grad_subset, C,
-                                         comp_norm, order, cfg.comp_pos,
-                                         cfg.comp_l1_ratio)
+        D_subset, cn = bcd_kernel(D_subset, grad_subset, C, cn, order,
+                                  cfg.comp_pos, cfg.comp_l1_ratio)
     elif cfg.optimizer == 'variational':
-        D_subset, comp_norm = _bcd_plain(D_subset, grad_subset, C,
-                                         comp_norm, order, cfg)
+        D_subset, cn = _bcd_plain(D_subset, grad_subset, C, cn, order, cfg)
     else:  # 'sgd': projected gradient step on the surrogate
         R = grad_subset - C @ D_subset
-        budgets = comp_norm + enet_norm(D_subset, cfg.comp_l1_ratio, axis=1)
-        D_new = D_subset + w * cfg.step_size * R
+        budgets = cn + enet_norm(D_subset, cfg.comp_l1_ratio, axis=1)
+        D_new = D_subset + w_step * R
         if cfg.comp_pos:
             D_new = torch.clamp(D_new, min=0.0)
         D_subset = enet_projection_batch(D_new, budgets, cfg.comp_l1_ratio)
-        comp_norm = budgets - enet_norm(D_subset, cfg.comp_l1_ratio, axis=1)
+        cn = budgets - enet_norm(D_subset, cfg.comp_l1_ratio, axis=1)
 
     if incremental_G:
-        G = G + D_subset @ D_subset.T
+        G_new = G_new + D_subset @ D_subset.T
     if n_valid is not None:
         D_subset = torch.where(validf > 0, D_subset, D_cols)
     ctx.write_cols(D, subset, D_subset, cfg)
     if cfg.G_agg == 'full' and not incremental_G:
-        G = D @ D.T
+        G_new = D @ D.T
         if cfg.windowed:
             Dm = D[:, ctx.col(cfg.n_features):]
-            G = G - Dm @ Dm.T
-        G = ctx.sum_feat(G)
-    return G, comp_norm
+            G_new = G_new - Dm @ Dm.T
+        G_new = ctx.sum_feat(G_new)
+    if cfg.G_agg == 'full':
+        G.copy_(G_new)
+    comp_norm.copy_(cn)
+
+
+# the step's scalars, in the state's dtype: the batch weight w, the decay
+# 1 - w, w / b, the Binomial size n_valid (0 without one) and the sgd
+# step w * step_size
+N_SCALARS = 5
+
+
+def step_scalars(state: SomfState, cfg: SomfConfig, b, n_valid):
+    """Advance the sample counter by a batch of ``b`` and return the
+    step's scalars (``N_SCALARS``) as a numpy array of the state's dtype.
+    The weight is numpy in that dtype (``batch_weight``); ``w / b`` and
+    ``w * step_size`` are taken in double and rounded to it, as the
+    kernels' cast of a Python float rounded them."""
+    np_dtype = _np_dtype(state.D.dtype)
+    state.n_iter += b
+    w = batch_weight(state.n_iter, b, cfg.learning_rate, 0.0, np_dtype)
+    return np.array([w, np_dtype.type(1.0) - w, float(w) / b,
+                     0 if n_valid is None else n_valid,
+                     float(w) * cfg.step_size], np_dtype)
 
 
 @precise
+def _step_body(state: SomfState, X, sample_indices, subset, order,
+               scalars, cfg: SomfConfig, sized, deferred=None):
+    """The step's device work: every value that changes from step to step
+    is a tensor (``subset``, ``order``, the ``scalars`` of
+    :func:`step_scalars`; a window start is a host int, and windowed
+    steps are never captured), and every state leaf is written in place.
+    ``sized``: the subset's columns from ``n_valid`` on are masked.
+    ``deferred`` is :func:`somf_step_inner`'s, with ``pi`` already
+    advanced by this step's decay."""
+    w, decay, w_b, n_valid, w_step = scalars.unbind()
+    n_valid = n_valid if sized else None
+    b = sample_indices.shape[0]
+    ctx = _context(state, cfg, sample_indices)
+    n_features = cfg.n_features if cfg.windowed else ctx.n_stored
+
+    # --- step weights ---
+    ctx.visit(state.sample_n_iter)
+    w_sample = sample_weight(ctx.read([state.sample_n_iter])[0],
+                             cfg.sample_learning_rate, state.D.dtype)
+
+    # --- code: this rank's rows, then the whole batch's ---
+    code_rows = _solve_code(state, X, ctx, w_sample, subset, cfg,
+                            n_valid=n_valid)
+    code_batch = ctx.batch(code_rows)
+    if state.code is not None:
+        ctx.write(state.code, code_batch)
+
+    # --- surrogate statistics ---
+    CtC = code_batch.T @ code_batch
+    if cfg.optimizer == 'variational':
+        state.C.mul_(decay).add_(w * CtC / b)
+        if deferred is None:
+            # one rounding of w / b times the product, as add_(alpha=)
+            state.B.mul_(decay).addcmul_(ctx.sum_rows(code_rows.T @ X), w_b)
+        else:
+            B0, Xseg, SC, pi, trow = deferred
+            m = code_rows.shape[0]
+            SC.mul_(decay)
+            SC[trow * m:(trow + 1) * m] = w_b * code_rows
+    else:
+        state.C.copy_(CtC / b)
+        state.B.copy_(ctx.sum_rows(code_rows.T @ X) / b)
+
+    # --- dictionary update on the subset columns ---
+    width = cfg.len_max if cfg.rand_size else cfg.len_subset
+    if deferred is None or cfg.optimizer != 'variational':
+        grad_subset = ctx.cols(state.B, subset, width, cfg)
+    else:
+        grad_subset = ctx.window_grad(B0, SC, Xseg, subset, width, pi, cfg)
+    _update_dict(state.D, state.G, state.comp_norm, state.C, grad_subset,
+                 subset, w_step, order, cfg, n_features, ctx,
+                 n_valid=n_valid)
+    return state
+
+
+def _device_scalars(host, device):
+    """A step's scalars on ``device``: a non-blocking copy from pinned
+    memory on CUDA."""
+    scalars = torch.from_numpy(host)
+    if device.type == 'cuda':
+        return scalars.pin_memory().to(device, non_blocking=True)
+    return scalars
+
+
 def somf_step_inner(state: SomfState, X, sample_indices, subset, order,
                     cfg: SomfConfig, n_valid=None, deferred=None):
-    """The step body given a drawn subset (window start or index tensor on
-    the device), Binomial size ``n_valid`` and atom ``order``. Updates
+    """The step given a drawn subset (window start or index tensor on
+    the device), Binomial size ``n_valid`` (a host int) and atom
+    ``order``: :func:`step_scalars`, then the step body. Updates
     ``state`` in place and returns it; the sampler fields are untouched.
 
     On a mesh (``cfg.mesh``; ``state`` sharded) ``X`` is this rank's
@@ -576,57 +672,97 @@ def somf_step_inner(state: SomfState, X, sample_indices, subset, order,
     ``somf_scan`` materialises ``B = pi B0 + SC^T Xseg`` at the
     segment's end.
     """
-    dtype = state.D.dtype
-    np_dtype = _np_dtype(dtype)
-    b = sample_indices.shape[0]
-    ctx = _context(state, cfg, sample_indices)
-    n_features = cfg.n_features if cfg.windowed else ctx.n_stored
-
-    # --- step weights ---
-    state.n_iter += b
-    ctx.visit(state.sample_n_iter)
-    w_sample = sample_weight(ctx.read([state.sample_n_iter])[0],
-                             cfg.sample_learning_rate, dtype)
-    w_np = batch_weight(state.n_iter, b, cfg.learning_rate, 0.0, np_dtype)
-    decay_np = np_dtype.type(1.0) - w_np
-    w, decay = float(w_np), float(decay_np)
-
-    # --- code: this rank's rows, then the whole batch's ---
-    code_rows = _solve_code(state, X, ctx, w_sample, subset, cfg,
-                            n_valid=n_valid)
-    code_batch = ctx.batch(code_rows)
-    if state.code is not None:
-        ctx.write(state.code, code_batch)
-
-    # --- surrogate statistics ---
-    CtC = code_batch.T @ code_batch
-    if cfg.optimizer == 'variational':
-        state.C = state.C * decay + w * CtC / b
-        if deferred is None:
-            state.B.mul_(decay).add_(ctx.sum_rows(code_rows.T @ X),
-                                     alpha=w / b)
-        else:
-            B0, Xseg, SC, pi, trow = deferred
-            m = code_rows.shape[0]
-            SC.mul_(decay)
-            SC[trow * m:(trow + 1) * m] = (w / b) * code_rows
-            pi = np_dtype.type(pi * decay_np)
-    else:
-        state.C = CtC / b
-        state.B = ctx.sum_rows(code_rows.T @ X) / b
-
-    # --- dictionary update on the subset columns ---
-    width = cfg.len_max if cfg.rand_size else cfg.len_subset
-    if deferred is None or cfg.optimizer != 'variational':
-        grad_subset = ctx.cols(state.B, subset, width, cfg)
-    else:
-        grad_subset = ctx.window_grad(B0, SC, Xseg, subset, width, pi, cfg)
-    state.G, state.comp_norm = _update_dict(
-        state.D, state.G, state.comp_norm, state.C, grad_subset, subset, w,
-        order, cfg, n_features, ctx, n_valid=n_valid)
+    host = step_scalars(state, cfg, sample_indices.shape[0], n_valid)
+    if deferred is not None:
+        B0, Xseg, SC, pi, trow = deferred
+        pi = host.dtype.type(pi * host[1])
+        deferred = (B0, Xseg, SC, pi, trow)
+    _step_body(state, X, sample_indices, subset, order,
+               _device_scalars(host, state.D.device), cfg,
+               n_valid is not None, deferred=deferred)
     if deferred is None:
         return state
     return state, SC, pi
+
+
+class DrawLayout:
+    """Where a step's draws lie in one byte buffer: the subset's
+    ``width`` int64 indices (0 for a window start, which stays a host
+    int), the ``N_SCALARS`` scalars in ``dtype`` and the (k,) int32
+    order, each at an offset its type aligns to."""
+
+    def __init__(self, width, k, dtype):
+        self.width, self.dtype = width, dtype
+        self.itemsize = torch.empty((), dtype=dtype).element_size()
+        self.scalars_at = 8 * width
+        self.order_at = (self.scalars_at
+                         + -(-N_SCALARS * self.itemsize // 8) * 8)
+        self.nbytes = self.order_at + 4 * k
+
+    @classmethod
+    def of(cls, cfg: SomfConfig, dtype):
+        width = 0 if cfg.windowed else (cfg.len_max if cfg.rand_size
+                                        else cfg.len_subset)
+        return cls(width, cfg.n_components, dtype)
+
+    def fill(self, buf, subset, order, scalars):
+        """Write a step's draws into ``buf`` (a uint8 numpy array)."""
+        if self.width:
+            buf[:self.scalars_at].view(np.int64)[:] = subset.numpy()
+        buf[self.scalars_at:self.order_at].view(scalars.dtype)[
+            :N_SCALARS] = scalars
+        buf[self.order_at:self.nbytes].view(np.int32)[:] = order.numpy()
+
+    def views(self, buf):
+        """``(subset, order, scalars)`` views of a uint8 tensor of
+        ``nbytes`` (``subset`` None for a window start)."""
+        subset = (buf[:self.scalars_at].view(torch.int64) if self.width
+                  else None)
+        scalars = buf[self.scalars_at:self.scalars_at
+                      + N_SCALARS * self.itemsize].view(self.dtype)
+        return subset, buf[self.order_at:self.nbytes].view(torch.int32), \
+            scalars
+
+
+class DrawStaging:
+    """The host draws' way to the device: two host slots (pinned on
+    CUDA) used in turn. A step's subset, order and scalars are packed into
+    one slot (:class:`DrawLayout`) and sent in one non-blocking copy,
+    after which an event is recorded for the slot; a slot is rewritten
+    only once that event has passed, so a copy in flight never sees its
+    source change. The host waits for the card only there, when it is
+    two steps ahead of it."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pinned = self.device.type == 'cuda'
+        self.slots = [None, None]
+        self.events = [None, None]
+        self.turn = 0
+
+    def send(self, layout, subset, order, scalars, out=None):
+        """Stage a step's draws; returns their ``(subset, order,
+        scalars)`` on the device, as views of ``out`` (a uint8 device
+        tensor of ``layout.nbytes``) or of a new tensor."""
+        i = self.turn
+        self.turn = 1 - i
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        slot = self.slots[i]
+        if slot is None or slot.shape[0] < layout.nbytes:
+            slot = self.slots[i] = torch.empty(
+                layout.nbytes, dtype=torch.uint8, pin_memory=self.pinned)
+        slot = slot[:layout.nbytes]
+        layout.fill(slot.numpy(), subset, order, scalars)
+        if out is None:
+            out = slot.to(self.device, non_blocking=True, copy=True)
+        else:
+            out.copy_(slot, non_blocking=True)
+        if self.pinned:
+            if self.events[i] is None:
+                self.events[i] = torch.cuda.Event()
+            self.events[i].record()
+        return layout.views(out)
 
 
 def draw_step(state: SomfState, cfg: SomfConfig):
@@ -668,14 +804,20 @@ def _to_device(subset, device):
     return subset if isinstance(subset, int) else subset.to(device)
 
 
-def somf_step(state: SomfState, X, sample_indices, cfg: SomfConfig):
-    """One minibatch update: host draws, then :func:`somf_step_inner`."""
+def somf_step(state: SomfState, X, sample_indices, cfg: SomfConfig,
+              staging=None):
+    """One minibatch update: host draws and scalars, sent to the device
+    through ``staging`` (a :class:`DrawStaging`, kept across steps by the
+    caller; a new one otherwise), then the step body."""
     subset, n_valid, order = draw_step(state, cfg)
-    device = state.D.device
-    return somf_step_inner(state, X, sample_indices,
-                           _to_device(subset, device),
-                           order.to(device, torch.int32), cfg,
-                           n_valid=n_valid)
+    host = step_scalars(state, cfg, sample_indices.shape[0], n_valid)
+    if staging is None:
+        staging = DrawStaging(state.D.device)
+    sent, order, scalars = staging.send(DrawLayout.of(cfg, state.D.dtype),
+                                        subset, order, host)
+    return _step_body(state, X, sample_indices,
+                      subset if cfg.windowed else sent, order, scalars, cfg,
+                      n_valid is not None)
 
 
 def _deferred_seg(cfg, n_batches):

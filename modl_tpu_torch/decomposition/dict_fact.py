@@ -49,8 +49,9 @@ from ..base import (BaseEstimator, TransformerMixin, check_array,
 from ..ops.enet import enet_scale
 from ..ops.sampler import binomial_len_max, init_sampler_state
 from ..parallel import mesh as pmesh
-from ._step import (SomfConfig, SomfState, compute_code, draw_epoch,
-                    host_zeros, objective_value, offload_scan,
+from . import _program
+from ._step import (DrawStaging, SomfConfig, SomfState, compute_code,
+                    draw_epoch, host_zeros, objective_value, offload_scan,
                     offload_supported, somf_scan, somf_step,
                     state_from_numpy, state_to_numpy)
 
@@ -102,8 +103,9 @@ class _PickleStateMixin:
     ``_state`` (a :class:`SomfState`) goes through ``state_to_numpy``,
     with the generator's state, and comes back with ``G_avg`` in host
     RAM, where the next ``partial_fit`` places it; the tensor attributes
-    named in ``_DEVICE_FIELDS`` go as plain arrays; ``_offload_staging``,
-    a transient buffer, is dropped. A mesh is dropped too (the JAX
+    named in ``_DEVICE_FIELDS`` go as plain arrays; the transient
+    buffers (``_offload_staging``, ``_draw_staging``) and the step program
+    (``_program``) are dropped. A mesh is dropped too (the JAX
     package's mixin does the same): a sharded state is gathered whole
     (every rank pickles) and loads as a single-process estimator."""
 
@@ -116,7 +118,8 @@ class _PickleStateMixin:
         for name in self._DEVICE_FIELDS:
             if state.get(name) is not None:
                 state[name] = state[name].cpu().numpy()
-        state.pop('_offload_staging', None)
+        for name in ('_offload_staging', '_draw_staging', '_program'):
+            state.pop(name, None)
         if state.get('mesh') is not None:
             state['mesh'] = None
         if getattr(state.get('_cfg'), 'mesh', None) is not None:
@@ -395,6 +398,7 @@ class DictFact(CodingMixin, BaseEstimator):
             raise ValueError(f'average_offload runs on CUDA or the CPU, '
                              f'not on {device}')
         self._cfg = cfg
+        self._program = self._draw_staging = None
         self._n_features = int(n_features)
         self._n_samples = int(n_samples)
         self._dtype = dtype
@@ -659,12 +663,32 @@ class DictFact(CodingMixin, BaseEstimator):
         self.time_ += time.perf_counter() - t0
 
     def _step_batch(self, X_dev, idx, offload):
-        """One minibatch: ``somf_step``, or a segment of one batch."""
+        """One minibatch: a segment of one batch, the step program (a
+        captured graph on the card) where the configuration runs as one
+        (``_program.capturable``) and the batch is full, else
+        ``somf_step``."""
         if offload:
             self._offload_segment(X_dev[None], idx[None])
+        elif (X_dev.shape[0] == self.batch_size
+              and _program.capturable(self._cfg)):
+            self._step_program().step(X_dev, idx)
         else:
+            if getattr(self, '_draw_staging', None) is None:
+                self._draw_staging = DrawStaging(self._state.D.device)
             self._state = somf_step(self._state, self._rows(X_dev[None])[0],
-                                    idx, self._cfg)
+                                    idx, self._cfg, self._draw_staging)
+
+    def _step_program(self):
+        """The step program of the current state, configuration and batch
+        size: the cached one, or a new one where any of them changed or a
+        leaf of the state was replaced."""
+        prog = getattr(self, '_program', None)
+        if prog is None or not prog.holds(self._state, self._cfg,
+                                          self.batch_size):
+            self._program = None        # release the old graph first
+            self._program = prog = _program.StepProgram(
+                self._state, self._cfg, self.batch_size)
+        return prog
 
     def _rows(self, X_batches):
         """This rank's rows of stacked (T, b, n) batches on a mesh (their
@@ -730,6 +754,7 @@ class DictFact(CodingMixin, BaseEstimator):
         seed = self.random_state.randint(MAX_INT)
         perm = np.random.RandomState(seed).permutation(self._n_samples)
         st = self._state
+        self._program = None            # the per-sample leaves move
         perm_dev = torch.as_tensor(perm, device=st.D.device)
         if st.layout is not None and st.layout.split_rows:
             self._shuffle_shards(perm_dev)
@@ -777,6 +802,7 @@ class DictFact(CodingMixin, BaseEstimator):
         sharded again after (collectives: every rank calls it)."""
         G_agg = params.pop('G_agg', None)
         st = getattr(self, '_state', None)
+        self._program = None
         if st is not None and st.layout is not None:
             st = self._state = pmesh.unshard_state(st)
         if G_agg == 'full' and self.G_agg != 'full':

@@ -13,7 +13,12 @@ import time
 
 import torch
 
-__all__ = ["sync", "device_trace", "device_summary", "StepTimer"]
+__all__ = ["sync", "device_trace", "device_summary", "host_waits",
+           "idle_gaps", "StepTimer"]
+
+# the CUDA runtime's calls in which the host waits for the card
+WAIT_CALLS = ('cudaDeviceSynchronize', 'cudaStreamSynchronize',
+              'cudaEventSynchronize')
 
 
 def _first_tensor(x):
@@ -62,15 +67,38 @@ def device_summary(prof):
     """(busy seconds, device ops, host reads, device events) of a finished
     :func:`device_trace`: the summed self time of the device's kernels
     and copies (one stream, so they do not overlap), their count, and
-    the reads of device values by the host
-    (``aten::_local_scalar_dense``). The events are ``key_averages()``'s
-    device rows."""
+    the scalar reads by the host (``aten::_local_scalar_dense``: of
+    device and host tensors alike, so ``int()`` of a host generator's
+    draw counts too; :func:`host_waits` counts the waits for the card).
+    The events are ``key_averages()``'s device rows."""
     events = prof.key_averages()
     device = [e for e in events if e.device_type.name == 'CUDA']
     busy = sum(e.self_device_time_total for e in device) / 1e6
     reads = sum(e.count for e in events
                 if e.key == 'aten::_local_scalar_dense')
     return busy, sum(e.count for e in device), reads, device
+
+
+def host_waits(prof):
+    """The calls of a finished :func:`device_trace` in which the host
+    waited for the card (``WAIT_CALLS``), by name."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in WAIT_CALLS}
+
+
+def idle_gaps(prof, min_ms):
+    """``(count, ms)`` of the gaps of at least ``min_ms`` between the
+    device's kernels and copies in a finished :func:`device_trace`
+    (where the card sat idle, waiting for the host)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type.name == 'CUDA')
+    count, total, end = 0, 0.0, None
+    for start, stop in spans:
+        if end is not None and start - end >= 1e3 * min_ms:
+            count += 1
+            total += start - end
+        end = stop if end is None else max(end, stop)
+    return count, total / 1e3
 
 
 class StepTimer:

@@ -12,6 +12,7 @@
 """
 import os
 import pickle
+import types
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,7 +36,8 @@ from modl_tpu_torch.ops.sampler import Sampler
 from modl_tpu_torch.utils import random as trandom
 from modl_tpu_torch.utils import system as tsystem
 from modl_tpu_torch.utils.profiling import (StepTimer, device_summary,
-                                            device_trace, sync)
+                                            device_trace, host_waits,
+                                            idle_gaps, sync)
 
 T = torch.as_tensor
 
@@ -203,3 +205,49 @@ def test_device_trace_on_the_cpu(tmp_path):
     busy, ops, reads, events = device_summary(prof)
     assert (busy, ops, events) == (0.0, 0, [])
     assert reads >= 0
+
+
+def _event(device, start, end, key='k', count=1):
+    return types.SimpleNamespace(
+        device_type=types.SimpleNamespace(name=device), key=key,
+        count=count, time_range=types.SimpleNamespace(start=start, end=end))
+
+
+def test_idle_gaps_sum_the_card_s_long_gaps():
+    """Device spans (us) with gaps of 1,500 and 700 us and overlapping
+    spans; host events do not count."""
+    events = [_event('CUDA', 0, 100), _event('CUDA', 50, 400),
+              _event('CPU', 400, 5000), _event('CUDA', 1900, 2000),
+              _event('CUDA', 2700, 2800), _event('CUDA', 2850, 2900)]
+    prof = types.SimpleNamespace(events=lambda: events)
+    assert idle_gaps(prof, 0.5) == (2, 2.2)
+    assert idle_gaps(prof, 1.0) == (1, 1.5)
+    assert idle_gaps(types.SimpleNamespace(events=lambda: []), 0.5) == \
+        (0, 0.0)
+
+
+def test_host_waits_by_name():
+    rows = [_event('CPU', 0, 0, 'cudaStreamSynchronize', 3),
+            _event('CPU', 0, 0, 'cudaEventSynchronize', 2),
+            _event('CPU', 0, 0, 'cudaMemcpyAsync', 9),
+            _event('CPU', 0, 0, 'aten::mm', 4)]
+    prof = types.SimpleNamespace(key_averages=lambda: rows)
+    assert host_waits(prof) == {'cudaStreamSynchronize': 3,
+                                'cudaEventSynchronize': 2}
+
+
+def test_host_reads_count_the_host_generator_s_draws(tmp_path):
+    """``device_summary``'s host reads are scalar reads of any tensor: a
+    step's draws on the host generator (a Binomial size and a box
+    offset) make two, with no wait for a card."""
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.decomposition._step import draw_step
+    X = np.random.RandomState(0).randn(300, 256).astype(np.float32)
+    df = DictFact(n_components=8, reduction=8, batch_size=20,
+                  random_state=0, device='cpu').prepare(n_samples=300, X=X)
+    assert df._cfg.rand_size and not df._cfg.windowed
+    with device_trace(str(tmp_path), device='cpu') as prof:
+        for _ in range(10):
+            draw_step(df._state, df._cfg)
+    assert device_summary(prof)[2] == 20
+    assert host_waits(prof) == {}
