@@ -50,6 +50,21 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    staging, replay) with the card idle, the card's ms a step over 20
    back to back, the capture's seconds and the graph pool's MB; then
    ``partial_fit`` with a callback (one capture, every step a replay);
+   then scan_graph: the scan program (the fused epoch as one captured
+   graph) against the eager ``somf_scan`` at ADHD-70 with windowed
+   subsets and ridge codes (``bench.py``'s configuration), with l1 codes
+   (FISTA), and with gather subsets: 3 epochs from one carried state and
+   one set of draws, every leaf bitwise equal after each, the replays
+   under ``set_sync_debug_mode('error')``, BCD, EMA-GEMM and FISTA
+   launches equal to an epoch's; the epochs' relative difference against
+   the same draws with host window starts (the slicing body); the wall
+   seconds of an epoch each way (medians of 5), the card's ms an epoch,
+   the host us to draw, stage and replay and to issue an eager epoch
+   (the card idle), the capture's seconds, the pool's MB, the idle share
+   of one profiled epoch each way, the rows' copy and a step's window
+   gather in ms; then ``DictFact(**ADHD, n_epochs=3).fit``: one capture,
+   every epoch a replay, the launches of 3 epochs, a held-out objective
+   below the initial dictionary's;
    then adhd70_l1: the same fit with DictFact's default l1 codes (FISTA
    on the card): one FISTA and one BCD launch a step, every solve with
    host reads forbidden, and a refit with both kernels' plain versions
@@ -70,7 +85,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 5. hcp1024: one epoch (6 steps) of the HCP-1024 configuration through
    the kernel block driver, with the same launch counts, gate on and off,
    and samples/s; then step_graph at HCP-1024 (gather subsets, the
-   block driver's 4 calls a step);
+   block driver's 4 calls a step) and scan_graph at HCP-1024 (windowed,
+   the block driver, one EMA-GEMM segment end of 1,200 rows);
    then offload: the HCP-1024 configuration with ``Dx_agg=G_agg=
    'average'``, one epoch with ``average_offload=True`` (G_avg, 5.03 GB,
    in pinned host RAM; 6 segments of one batch; BCD launches as
@@ -98,7 +114,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 6. ema_kernel: the EMA-GEMM kernel (3xTF32 on the tensor cores) against
    its plain version at the segment-end shapes of the fMRI legs and of the
    resident ADHD-70 fit and at two ragged ones (one of odd width), for pi
-   in {0, 0.9, 1}, with both times, GB/s and TFLOP/s;
+   in {0, 0.9, 1} (a float on the card, which the kernel reads there),
+   with both times, GB/s and TFLOP/s;
 7. launch_overhead: the launch-overhead probe against its plain version,
    then its benchmark (ms per step and per launch at 4, 2, 1 launches);
 8. fmri_adhd70: ``fMRIDictFact.fit`` on ``bench.py``'s streaming fMRI
@@ -108,11 +125,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    launch counts, record-cache hits, held-out objective below the initial
    dictionary's and within 1e-2 of a refit with the kernel off, the
    gate's A/B (``partial_fit`` ms of fits in turns with the kernel on,
-   off, off, on, and the medians), epoch samples/s, io/cpu time and the
-   host-to-device rate;
+   off, off, on, and the medians), epoch samples/s, io/cpu time, the
+   host-to-device rate, and the scan program the records ran through
+   (one capture, every record an epoch of it) with its row copy's ms;
 9. fmri_hcp1024: ``exps/hcp/decompose_hcp.py``'s configuration (k=1024,
    reduction 20, batch 200) on 2 Gaussian records of 1,200 x 200,000,
-   2 epochs: the same checks through the BCD block driver;
+   2 epochs: the same checks through the BCD block driver (the gate's
+   A/B on the two fits alone);
    then nifti: ``fMRIDictFact`` (k=70, reduction 12, batch 100, no
    cleaning, 2 epochs) on records and mask given as NIfTI images on the
    MNI152 3 mm grid (61 x 73 x 61, a fixed mask of 200,000 voxels; 2
@@ -179,7 +198,15 @@ process ADHD-70 and HCP-1024 fits and phase mesh alone (on a machine
 with four cards, its legs over NCCL across them), then the device line.
 
 ``python3 chip_smoke.py --step-graph-only`` runs phases 1, 2 and
-step_graph alone, then the device line.
+step_graph alone, then the device line; ``--scan-graph-only`` runs
+phases 1, 2, the EMA-GEMM kernel at the fits' three segment-end shapes
+and scan_graph, then the device line.
+
+Every phase line ends with ``at=``, its seconds since the start. On
+its way out, passed or failed, the script stops every process it
+started that is still there (``stop_children``): ``multiprocessing``'s
+resource tracker, which the mesh phase starts and which would outlive
+the script, and any other descendant.
 
 ``python3 chip_smoke.py --ab-step-graph TREE [TREE ...]`` times the image
 workload's fits of several checkouts in turns on one card through
@@ -369,13 +396,21 @@ AB_REPS, AB_SWEEP, AB_HOST_LAUNCHES = 20, (0, 4, 5, 50, 100, 200), 200
 # program (then again for the card's time a step), and host-timed steps
 # of each path with the card idle at each call
 GRAPH_STEPS, GRAPH_HOST_STEPS = 20, 10
+# phase scan_graph: epochs a leg holds bitwise (the first captures),
+# epochs timed each way, and the epochs of its whole fit
+SCAN_EPOCHS, SCAN_TIMED, SCAN_FIT_EPOCHS = 3, 5, 3
 # rounds of on, off, off, on fits in the ADHD-70 leg's gate A/B: the
 # kernel's ~1 ms over 6 segment ends sits inside one fit's spread (~32
 # ms +- 1.5); the HCP-1024 leg's ~15 ms stands out in one round
 AB_ROUNDS_ADHD = 5
 
 
+# the run's start: every phase line ends with its seconds since (``at``)
+T_START = time.perf_counter()
+
+
 def phase(label, **fields):
+    fields['at'] = f'{time.perf_counter() - T_START:.1f}'
     print(f'phase={label} ' + ' '.join(f'{k}={v}' for k, v in fields.items()),
           flush=True)
 
@@ -1215,9 +1250,257 @@ def hcp_graph_leg(X):
     return [('hcp1024', kw, X)]
 
 
+def scan_graph_leg(label, kw, X):
+    """``kw``'s ``DictFact`` prepared on ``X`` (its n // b full batches):
+    SCAN_EPOCHS epochs from one carried state with one set of draws
+    through the eager ``somf_scan`` and through a ``ScanProgram`` (the
+    first epoch runs eagerly and captures, the others replay under
+    ``set_sync_debug_mode('error')``), every leaf held bitwise after each
+    epoch and the BCD, EMA-GEMM and FISTA launches equal to the epoch's;
+    windowed legs also run the epochs with host window starts (the
+    slicing body of the step before the starts went to the device),
+    whose largest relative difference is printed. Then SCAN_TIMED epochs
+    each way: wall seconds (medians), the card's ms an epoch (CUDA events
+    over epochs back to back), the host us to draw, stage and replay with
+    the card idle, the capture's seconds and the pool's MB, the idle share
+    of one profiled epoch each way, and the row copy's and the window
+    gather's ms. Returns the leg's numbers."""
+    import statistics
+
+    import torch
+    from modl_tpu_torch import DictFact
+    from modl_tpu_torch.decomposition import _program, _step
+    from modl_tpu_torch.ops import bcd, ema_gemm, fista
+    from modl_tpu_torch.utils.profiling import device_summary, device_trace
+    leg_t0 = time.perf_counter()
+    b = kw['batch_size']
+    T = X.shape[0] // b
+    df = DictFact(**kw, device='cuda').prepare(n_samples=X.shape[0], X=X)
+    cfg = df._cfg
+    if not _program.capturable(cfg):
+        raise RuntimeError(f'scan_graph {label}: the configuration does not '
+                           'run as a scan program')
+    X_dev = df._ingest_features(torch.as_tensor(X[:T * b]).cuda())
+    Xb = X_dev.view(T, b, -1)
+    idx = torch.arange(T * b, device='cuda')
+    ib = idx.view(T, b)
+    eager, graph, sliced = (clone_state(df._state) for _ in range(3))
+    del df
+    staging = _step.DrawStaging('cuda')
+    prog = _program.ScanProgram(graph, cfg, T, b)
+    seg = _step._deferred_seg(cfg, T)
+    ends = -(-T // seg) if seg >= 2 else 0
+    l1 = cfg.code_l1_ratio != 0
+    blocks = bcd_blocks(cfg)
+    want = (T * blocks, ends if ema_gemm.ENABLED else 0, T if l1 else 0)
+
+    def launches():
+        return bcd.LAUNCHES, ema_gemm.LAUNCHES, fista.LAUNCHES
+
+    def eager_epoch():
+        _step.somf_scan(eager, Xb, ib, cfg, _step.draw_epoch(eager, cfg, T),
+                        staging)
+
+    def graph_epoch():
+        prog.epoch(X_dev, idx, _step.draw_epoch(graph, cfg, T))
+
+    def sliced_epoch():
+        """The epoch with its window starts as host ints (slices)."""
+        draws = _step.draw_epoch(sliced, cfg, T)
+        steps = _step.stage_epoch(sliced, cfg, b, draws, staging)
+        _step._scan_body(sliced, Xb, ib, cfg, [
+            (start,) + step[1:] for start, step in zip(draws.subsets,
+                                                       steps)])
+
+    def counted(fn, guard=False):
+        c0 = launches()
+        if guard:
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+        return tuple(y - x for x, y in zip(c0, launches()))
+
+    diffs, rel_sliced, counts = {}, {}, set()
+    for epoch in range(SCAN_EPOCHS):
+        counts.add(('eager', counted(eager_epoch)))
+        counts.add(('graph', counted(graph_epoch, guard=epoch > 0)))
+        for name in _program.LEAVES:
+            a, e = getattr(graph, name), getattr(eager, name)
+            if a is not None:
+                d = float((a.double() - e.double()).abs().max())
+                diffs[name] = max(diffs.get(name, 0.0), d)
+        if cfg.windowed:
+            sliced_epoch()
+            torch.cuda.synchronize()
+            for name in ('D', 'B', 'C', 'comp_norm', 'code'):
+                a, e = getattr(graph, name), getattr(sliced, name)
+                r = float((a.double() - e.double()).abs().max()
+                          / e.double().abs().max().clamp_min(1e-30))
+                rel_sliced[name] = max(rel_sliced.get(name, 0.0), r)
+    bitwise = all(d == 0.0 for d in diffs.values())
+    del sliced
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def card_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(SCAN_TIMED):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / SCAN_TIMED
+
+    def host_parts():
+        """The host's seconds of an epoch's draws, staging and replay,
+        and of an eager epoch's issue, each with the card idle."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draws = _step.draw_epoch(graph, cfg, T)
+        t1 = time.perf_counter()
+        prog.stage(X_dev, idx, draws)
+        t2 = time.perf_counter()
+        prog.run()
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        eager_epoch()
+        t5 = time.perf_counter()
+        torch.cuda.synchronize()
+        return t1 - t0, t2 - t1, t3 - t2, t5 - t4
+
+    timed = dict(
+        eager_epoch_s=statistics.median(wall(eager_epoch)
+                                        for _ in range(SCAN_TIMED)),
+        graph_epoch_s=statistics.median(wall(graph_epoch)
+                                        for _ in range(SCAN_TIMED)),
+        eager_card_ms=card_ms(eager_epoch), graph_card_ms=card_ms(graph_epoch))
+    parts = [host_parts() for _ in range(SCAN_TIMED)]
+    draw_us, stage_us, replay_us, eager_issue_us = (
+        1e6 * statistics.median(p) for p in zip(*parts))
+    idle = {}
+    for way, fn in (('eager', eager_epoch), ('graph', graph_epoch)):
+        with device_trace(os.path.join(REPO, 'build', 'chip_smoke_trace',
+                                       f'scan_{label}_{way}')) as prof:
+            seconds = wall(fn)
+        busy = device_summary(prof)[0]
+        idle[way] = (seconds, busy, 1 - busy / seconds)
+    # what the epoch's data movement costs on the card: the row copy the
+    # program makes a partial_fit, and one step's window gather of Xseg
+    flat = prog.X.view(T * b, -1)
+    copy_ms = cuda_ms(lambda: flat.copy_(X_dev), 5)
+    width = cfg.len_max if cfg.rand_size else cfg.len_subset
+    gather_ms = gather_mb = 0.0
+    if seg >= 2:
+        Xseg = Xb[:seg].reshape(seg * b, -1)
+        cols = torch.arange(width, device='cuda') + X_dev.shape[1] // 3
+        gather_ms = cuda_ms(lambda: Xseg[:, cols], 10)
+        gather_mb = 4 * seg * b * width / 1e6
+    pool_mb = graph_pool_mb(prog.graph)
+    eager_counts = {c for way, c in counts if way == 'eager'}
+    graph_counts = {c for way, c in counts if way == 'graph'}
+    phase('scan_graph', leg=label, k=cfg.n_components, batch=b, steps=T,
+          windowed=cfg.windowed, len_max=cfg.len_max,
+          code='fista' if l1 else 'ridge', blocks=blocks, segment=seg,
+          segment_ends=ends, epochs=SCAN_EPOCHS, bitwise=bitwise,
+          max_abs_diff=','.join(f'{k}:{v:.3e}' for k, v in diffs.items()),
+          rel_diff_vs_slicing=','.join(f'{k}:{v:.3e}'
+                                       for k, v in rel_sliced.items())
+          or None,
+          launches_eager='/'.join(map(str, sorted(eager_counts)[0])),
+          launches_graph='/'.join(map(str, sorted(graph_counts)[0])),
+          launches_expected='/'.join(map(str, want)),
+          host_syncs_in_replays=0,
+          eager_epoch_s=f'{timed["eager_epoch_s"]:.5f}',
+          graph_epoch_s=f'{timed["graph_epoch_s"]:.5f}',
+          eager_card_ms=f'{timed["eager_card_ms"]:.4f}',
+          graph_card_ms=f'{timed["graph_card_ms"]:.4f}',
+          draw_us=f'{draw_us:.1f}', stage_us=f'{stage_us:.1f}',
+          replay_us=f'{replay_us:.1f}',
+          eager_issue_us=f'{eager_issue_us:.1f}',
+          capture_s=f'{prog.capture_s:.4f}', pool_MB=f'{pool_mb:.1f}',
+          **{f'{way}_profiled_s': f'{v[0]:.5f}' for way, v in idle.items()},
+          **{f'{way}_busy_s': f'{v[1]:.5f}' for way, v in idle.items()},
+          **{f'{way}_idle_share': f'{v[2]:.4f}' for way, v in idle.items()},
+          rows_copy_ms=f'{copy_ms:.4f}', window_gather_MB=f'{gather_mb:.1f}',
+          window_gather_ms=f'{gather_ms:.4f}',
+          samples_per_s_eager=f'{T * b / timed["eager_epoch_s"]:.1f}',
+          samples_per_s_graph=f'{T * b / timed["graph_epoch_s"]:.1f}',
+          leg_s=f'{time.perf_counter() - leg_t0:.2f}')
+    if not bitwise:
+        raise RuntimeError(f'scan_graph {label}: the captured epochs differ '
+                           f'from the eager ones: {diffs}')
+    if eager_counts != {want} or graph_counts != {want}:
+        raise RuntimeError(f'scan_graph {label}: launches {eager_counts} '
+                           f'eager and {graph_counts} captured an epoch, '
+                           f'expected {want}')
+    if cfg.windowed and not max(rel_sliced.values()) < FIT_RTOL:
+        raise RuntimeError(f'scan_graph {label}: the device-start epochs '
+                           f'drift from the slicing ones: {rel_sliced}')
+    return dict(timed, capture_s=prog.capture_s, pool_mb=pool_mb)
+
+
+def scan_fit_leg(X, X_test, obj0):
+    """``DictFact(**ADHD, n_epochs=SCAN_FIT_EPOCHS).fit``: one capture,
+    every epoch through the scan program, the kernels' launches of its
+    epochs, and a held-out objective below the initial dictionary's."""
+    from modl_tpu_torch.decomposition import _program
+    captures, epochs = _program.CAPTURES, _program.EPOCHS
+    kw = dict(ADHD, n_epochs=SCAN_FIT_EPOCHS)
+    df, seconds, launches, ema = resident_fit(kw, X, True)
+    captures = _program.CAPTURES - captures
+    epochs = _program.EPOCHS - epochs
+    obj = df.score(X_test)
+    steps = ADHD_SAMPLES // ADHD['batch_size']
+    want = expected_launches(df._cfg, ADHD_SAMPLES, ADHD['batch_size'], 1,
+                             SCAN_FIT_EPOCHS, 1)
+    phase('scan_graph', leg='adhd70_fit', epochs=SCAN_FIT_EPOCHS,
+          captures=captures, program_epochs=epochs,
+          bcd_launches=launches, ema_launches=ema,
+          expected='/'.join(map(str, want)), objective=f'{obj:.6g}',
+          objective_init=f'{obj0:.6g}',
+          fit_samples_per_s=f'{SCAN_FIT_EPOCHS * ADHD_SAMPLES / seconds:.1f}',
+          epoch_samples_per_s=f'{SCAN_FIT_EPOCHS * ADHD_SAMPLES / df.time_:.1f}')
+    if (captures, epochs) != (1, SCAN_FIT_EPOCHS) or len(df._scans) != 1:
+        raise RuntimeError(f'scan_graph adhd70_fit: {captures} captures and '
+                           f'{epochs} program epochs, expected 1 and '
+                           f'{SCAN_FIT_EPOCHS}')
+    if (launches, ema) != want or steps * SCAN_FIT_EPOCHS != want[0]:
+        raise RuntimeError(f'scan_graph adhd70_fit: launches {launches}/'
+                           f'{ema}, expected {want}')
+    if not (math.isfinite(obj) and obj < obj0):
+        raise RuntimeError(f'scan_graph adhd70_fit: objective {obj} not '
+                           f'below the initial {obj0}')
+    return launches, ema
+
+
+def scan_graph_phase(X, X_test=None, obj0=None):
+    """Phase scan_graph's ADHD-70 legs: windowed ridge (the bench
+    configuration), windowed l1 (FISTA), gather subsets, then the whole
+    fit over SCAN_FIT_EPOCHS epochs (given the held-out rows)."""
+    kw = {key: v for key, v in ADHD.items() if key != 'subset_sampling'}
+    out = {label: scan_graph_leg(label, leg_kw, X) for label, leg_kw in (
+        ('adhd70_ridge', ADHD), ('adhd70_l1', dict(ADHD, code_l1_ratio=1.0)),
+        ('adhd70_gather', kw))}
+    if X_test is not None:
+        out['adhd70_fit'] = scan_fit_leg(X, X_test, obj0)
+    return out
+
+
 def ema_case(ema_gemm, k, m, n, seed):
     """The EMA-GEMM kernel against its plain version at one shape, for
-    every pi; returns (max abs error, kernel ms, plain ms, bound ms,
+    every pi (a 0-d tensor on the card, which the kernel reads there);
+    returns (max abs error, kernel ms, plain ms, bound ms,
     what bounds it, ms of the library's ``addmm_``) at pi=0.9."""
     import torch
     from modl_tpu_torch.ops.precision import full_f32
@@ -1228,9 +1511,11 @@ def ema_case(ema_gemm, k, m, n, seed):
     X = torch.randn(m, n, **dev)
     err = 0.0
     for pi in EMA_PIS:
-        Bk = ema_gemm.ema_accumulate(B.clone(), SC, X, pi)
+        # pi on the card, as the captured segment end reads it
+        pi_dev = torch.tensor(pi, dtype=torch.float32, device='cuda')
+        Bk = ema_gemm.ema_accumulate(B.clone(), SC, X, pi_dev)
         with full_f32():
-            Br = ema_gemm.ema_accumulate_reference(B.clone(), SC, X, pi)
+            Br = ema_gemm.ema_accumulate_reference(B.clone(), SC, X, pi_dev)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(Bk).all()):
             raise RuntimeError(f'EMA-GEMM output not finite at ({k}, {m}, '
@@ -1252,10 +1537,12 @@ def ema_case(ema_gemm, k, m, n, seed):
         del Bk, Br, Bf
     reps = 5 if k * m * n > 1e10 else 20
     Bt = B.clone()
-    ms = cuda_ms(lambda: ema_gemm.ema_accumulate(Bt, SC, X, 0.9), reps)
+    pi_dev = torch.tensor(0.9, dtype=torch.float32, device='cuda')
+    ms = cuda_ms(lambda: ema_gemm.ema_accumulate(Bt, SC, X, pi_dev), reps)
     with full_f32():
         plain_ms = cuda_ms(
-            lambda: ema_gemm.ema_accumulate_reference(Bt, SC, X, 0.9), reps)
+            lambda: ema_gemm.ema_accumulate_reference(Bt, SC, X, pi_dev),
+            reps)
         # one library call computing the same function
         library_ms = cuda_ms(lambda: Bt.addmm_(SC.T, X, beta=0.9), reps)
     gflop = 2.0 * k * m * n / 1e9
@@ -1417,6 +1704,27 @@ def check_fmri(label, fd, launches, want, cache_hits, obj, obj_off,
     return rel
 
 
+def scan_programs(fd, captures, epochs, records):
+    """The scan programs of a streaming fit that ran ``captures`` captures
+    and ``epochs`` program epochs over ``records`` records of one length:
+    one program, one capture, every record an epoch of it. Returns the
+    phase fields, with the ms of the row copy its ``partial_fit`` makes
+    (a record's full batches into the program's buffer)."""
+    import torch
+    progs = list(fd.dict_fact_._scans.values())
+    if (len(progs), captures, epochs) != (1, 1, records):
+        raise RuntimeError(f'{len(progs)} scan programs, {captures} '
+                           f'captures and {epochs} program epochs over '
+                           f'{records} records of one length, expected 1, '
+                           f'1 and {records}')
+    flat = progs[0].X.view(-1)
+    src = torch.empty_like(flat)
+    copy_ms = cuda_ms(lambda: flat.copy_(src), 5)
+    return dict(scan_programs=len(progs), captures=captures,
+                program_epochs=epochs, rows_copy_ms=f'{copy_ms:.4f}',
+                rows_copy_MB=f'{flat.numel() * 4 / 1e6:.1f}')
+
+
 def adhd_frames(n_records):
     """bench.py's planted streaming frames: ``n_records`` records of
     FMRI_ADHD_FRAMES x N_FEATURES, float32 (seed 0)."""
@@ -1431,6 +1739,7 @@ def adhd_frames(n_records):
 def fmri_adhd70(workdir):
     """bench.py's streaming fMRI leg at full width, float32 and float16
     records; returns the float32 run's EMA-GEMM launches."""
+    from modl_tpu_torch.decomposition import _program
     from modl_tpu_torch.decomposition.fmri import fMRIDictFact
     from modl_tpu_torch.input_data.fmri import (create_raw_rest_data,
                                                 get_raw_rest_data)
@@ -1459,8 +1768,11 @@ def fmri_adhd70(workdir):
         kw = dict(FMRI_ADHD, verbose=3 * FMRI_RECORDS + 1,
                   callback=lambda m, d, cpu_t, io_t: marks.append(
                       (d.n_iter_, cpu_t + io_t)))
+        captures, epochs = _program.CAPTURES, _program.EPOCHS
         with contextlib.redirect_stdout(io.StringIO()):
             fd, _, *launches = fmri_fit(train, masker, kw, 3, True)
+        scans = scan_programs(fd, _program.CAPTURES - captures,
+                              _program.EPOCHS - epochs, 3 * FMRI_RECORDS)
         total = fd.io_time_ + fd.cpu_time_
         first = dict(marks)[n_samples]     # end of the first epoch
         steady = total - first             # epochs 2-3, from the cache
@@ -1492,7 +1804,8 @@ def fmri_adhd70(workdir):
                   f'{3 * n_samples / fd.dict_fact_.time_:.1f}'),
               compute_samples_per_s_kernel_off=(
                   f'{3 * n_samples / off.dict_fact_.time_:.1f}'),
-              **ab, io_s=f'{fd1.io_time_:.4f}', cpu_s=f'{fd1.cpu_time_:.4f}',
+              **ab, **scans, io_s=f'{fd1.io_time_:.4f}',
+              cpu_s=f'{fd1.cpu_time_:.4f}',
               h2d_pageable_MBps=f'{pageable:.1f}',
               h2d_pinned_MBps=f'{pinned:.1f}')
         if ema_launches is None:
@@ -1504,6 +1817,7 @@ def fmri_adhd70(workdir):
 def fmri_hcp1024(workdir, X0):
     """exps/hcp/decompose_hcp.py's configuration at full width on two
     Gaussian records (the first is phase 7's data)."""
+    from modl_tpu_torch.decomposition import _program
     from modl_tpu_torch.input_data.fmri import (create_raw_rest_data,
                                                 get_raw_rest_data)
     recs = [X0] + [np.random.RandomState(seed).randn(n, N_FEATURES).astype(
@@ -1514,14 +1828,20 @@ def fmri_hcp1024(workdir, X0):
     del recs
     masker, records = get_raw_rest_data(d)
     train, test = records[:FMRI_RECORDS], records[FMRI_RECORDS:]
+    captures, epochs = _program.CAPTURES, _program.EPOCHS
     fd, seconds, *launches = fmri_fit(train, masker, FMRI_HCP, 2, True)
+    scans = scan_programs(fd, _program.CAPTURES - captures,
+                          _program.EPOCHS - epochs, 2 * FMRI_RECORDS)
     obj = fd.score(test)
     cfg = fd.dict_fact_._cfg
     blocks = bcd_blocks(cfg)
     want = expected_launches(cfg, HCP_SAMPLES, FMRI_HCP['batch_size'],
                              FMRI_RECORDS, 2, blocks)
     off, off_seconds, _, _ = fmri_fit(train, masker, FMRI_HCP, 2, False)
-    ab = gate_ab(train, masker, FMRI_HCP, 2, 1, on=(fd,), off=(off,))
+    # the A/B of the fits already made (no further rounds: each HCP-1024
+    # fit is ~15 s of host set-up, and the kernel's ~15 ms a segment end
+    # stands out in one pair)
+    ab = gate_ab(train, masker, FMRI_HCP, 2, 0, on=(fd,), off=(off,))
     obj_off = off.score(test)
     rel = check_fmri('fmri_hcp1024', fd, launches, want, FMRI_RECORDS, obj,
                      obj_off)
@@ -1538,7 +1858,8 @@ def fmri_hcp1024(workdir, X0):
           compute_samples_per_s=f'{n / fd.dict_fact_.time_:.1f}',
           compute_samples_per_s_kernel_off=(
               f'{n / off.dict_fact_.time_:.1f}'),
-          **ab, io_s=f'{fd.io_time_:.4f}', cpu_s=f'{fd.cpu_time_:.4f}')
+          **ab, **scans, io_s=f'{fd.io_time_:.4f}',
+          cpu_s=f'{fd.cpu_time_:.4f}')
     shutil.rmtree(d, ignore_errors=True)
 
 
@@ -2053,10 +2374,10 @@ def counting_steps():
     ingested = dict_fact.DictFact._partial_fit_ingested
     batch_step = recsys._recsys_batch_step
 
-    def counted_ingested(self, X_dev, sample_indices):
-        n = X_dev.shape[0]
+    def counted_ingested(self, X_dev, sample_indices, rows=None):
+        n = X_dev.shape[0] if rows is None else rows.shape[0]
         count['steps'] += -(-n // min(self.batch_size, n)) if n else 0
-        return ingested(self, X_dev, sample_indices)
+        return ingested(self, X_dev, sample_indices, rows=rows)
 
     def counted_batch_step(*args, **kwargs):
         count['steps'] += 1
@@ -2813,6 +3134,32 @@ def ab_step_graph(trees):
         *trees]).returncode
 
 
+def scan_graph_only_main(name, smi):
+    """``--scan-graph-only``: the EMA-GEMM kernel at the three segment-end
+    shapes of the fits, then phase scan_graph, then the device line."""
+    import torch
+    from modl_tpu_torch.ops import ema_gemm
+    from modl_tpu_torch.ops.sampler import binomial_len_max
+    n_adhd = N_FEATURES + binomial_len_max(N_FEATURES, N_FEATURES // 12)
+    n_hcp = N_FEATURES + binomial_len_max(N_FEATURES, N_FEATURES // 20)
+    for i, shape in enumerate([(70, 200, n_adhd), (1024, 1200, n_hcp),
+                               (70, 700, n_adhd)]):
+        ema_case(ema_gemm, *shape, seed=10 + i)
+    X, X_test = adhd_data()
+    from modl_tpu_torch import DictFact
+    obj0 = DictFact(**ADHD, device='cuda').prepare(
+        n_samples=ADHD_SAMPLES, X=X).score(X_test)
+    scan_graph_phase(X, X_test, obj0)
+    del X, X_test
+    scan_graph_leg('hcp1024', HCP, np.random.RandomState(0).randn(
+        HCP_SAMPLES, N_FEATURES).astype(np.float32))
+    print(smi, flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2847,6 +3194,8 @@ def main():
             print('  ptxas: ' + line.strip(), flush=True)
     if sys.argv[1:] == ['--mesh-only']:
         return mesh_only_main(name)
+    if sys.argv[1:] == ['--scan-graph-only']:
+        return scan_graph_only_main(name, smi)
     if sys.argv[1:] == ['--step-graph-only']:
         X, _ = adhd_data()
         legs = adhd_graph_legs(X) + image_graph_leg()
@@ -2932,6 +3281,8 @@ def main():
 
     # 4-. the SOMF step as one captured graph, against the eager step
     step_graph_phase(adhd_graph_legs(X) + image_graph_leg())
+    # 4-b. the fused epoch as one captured graph, against the eager scan
+    scan_graph_phase(X, X_test, obj0)
 
     # 4a. DictFact's default codes (l1, FISTA) at ADHD-70 width
     *adhd_l1, adhd_l1_fista = adhd70_l1_phase(X, X_test)
@@ -2980,6 +3331,7 @@ def main():
     hcp_ref = (df.components_, (hcp_launches, ema_on))
     del df, off, D
     step_graph_phase(hcp_graph_leg(X))
+    scan_graph_leg('hcp1024', HCP, X)
 
     # 5b. average_offload: G_avg in pinned host RAM at HCP-1024 width
     offload_launches = offload_phase(
@@ -3103,12 +3455,60 @@ def main():
     return 0
 
 
-if __name__ == '__main__':
+def stop_children():
+    """Stop every process of the run that is still there when it ends:
+    the resource tracker that ``multiprocessing`` starts for the mesh
+    phase's ranks (it outlives its parent, cleaning up after it), then
+    every other descendant, terminated (killed after 5 s) and waited
+    for."""
+    import gc
+    import signal
+    from multiprocessing import resource_tracker
+    gc.collect()        # the ranks' queue unregisters its locks first
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, '_pid', None) is not None:
+        tracker._stop()             # closes its pipe, waits for its exit
+    parents = {}
+    for pid in filter(str.isdigit, os.listdir('/proc')):
+        try:
+            with open(f'/proc/{pid}/stat') as f:
+                stat = f.read()
+        except OSError:
+            continue
+        parents[int(pid)] = int(stat[stat.rindex(')') + 2:].split()[1])
+    left = [os.getpid()]          # every descendant, children first
+    for pid in left:
+        left += [c for c, parent in parents.items() if parent == pid]
+    left = left[1:]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            with contextlib.suppress(OSError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + 5.0
+        while left and time.monotonic() < deadline:
+            for pid in list(left):
+                with contextlib.suppress(ChildProcessError):
+                    if os.waitpid(pid, os.WNOHANG) == (0, 0):
+                        continue            # a child still running
+                if parents.get(pid) == os.getpid() or not os.path.exists(
+                        f'/proc/{pid}'):
+                    left.remove(pid)
+            time.sleep(0.05)
+
+
+def run():
     if sys.argv[1:2] == ['--ab-fista-leg']:
-        sys.exit(ab_fista_leg(os.path.abspath(sys.argv[2]),
-                              int(sys.argv[3])))
+        return ab_fista_leg(os.path.abspath(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ['--ab-fista'] and sys.argv[2:]:
-        sys.exit(ab_fista(sys.argv[2:]))
+        return ab_fista(sys.argv[2:])
     if sys.argv[1:2] == ['--ab-step-graph'] and sys.argv[2:]:
-        sys.exit(ab_step_graph(sys.argv[2:]))
-    sys.exit(main())
+        return ab_step_graph(sys.argv[2:])
+    return main()
+
+
+if __name__ == '__main__':
+    try:
+        code = run()
+    finally:
+        stop_children()
+    sys.exit(code)

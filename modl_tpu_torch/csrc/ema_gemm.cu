@@ -102,8 +102,8 @@ struct Cfg {
     static constexpr int AHEAD = STAGES - 2;        // tiles in flight ahead
     static constexpr int WIN = small ? 1 : 2;       // stages a window
     static constexpr int MINB = small ? 2 : 1;      // blocks an SM
-    static constexpr int SMEM =                     // + STAGES mbarriers
-        (STAGES * (BK * LDX + 2 * BN * BK) + BN * LDC) * 4 + STAGES * 8;
+    static constexpr int SMEM =     // + STAGES mbarriers and pi (8 bytes)
+        (STAGES * (BK * LDX + 2 * BN * BK) + BN * LDC) * 4 + STAGES * 8 + 8;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -373,7 +373,7 @@ __global__ void __launch_bounds__(THREADS, Cfg<BN>::MINB)
 ema_gemm_tf32x3(float* __restrict__ B, const float* __restrict__ X,
                 const float* __restrict__ sc_hi,
                 const float* __restrict__ sc_lo, int k, int64_t n, int m,
-                int atom_tiles, float pi) {
+                int atom_tiles, const float* __restrict__ pi) {
     using C = Cfg<BN>;
     constexpr int BK = C::BK, STAGES = C::STAGES, AHEAD = C::AHEAD;
     constexpr int CH = AL ? BM / 4 : BM / 4 + 1;  // 16-byte pieces a row
@@ -382,6 +382,9 @@ ema_gemm_tf32x3(float* __restrict__ B, const float* __restrict__ X,
     float* bs = xs + STAGES * BK * LDX;            // [STAGES][hi, lo][BN*BK]
     float* bt = bs + STAGES * 2 * BN * BK;         // [BN][LDC]: B's tile
     uint64_t* full = reinterpret_cast<uint64_t*>(bt + BN * LDC);  // [STAGES]
+    // pi from device memory (a captured launch reads each epoch's): one
+    // load a block, read by every thread after the barriers below
+    float* pi_s = reinterpret_cast<float*>(full + STAGES);
 
     const int tid = threadIdx.x;
     const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
@@ -424,6 +427,7 @@ ema_gemm_tf32x3(float* __restrict__ B, const float* __restrict__ X,
     };
 
     if (tid == 0) {
+        *pi_s = *pi;
         for (int i = 0; i < STAGES; ++i) mbar_init(full + i, 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -499,16 +503,17 @@ ema_gemm_tf32x3(float* __restrict__ B, const float* __restrict__ X,
     __syncthreads();
 
     // epilogue: bt[atom][feature] = pi * B + sum, then bt -> B by rows
+    const float pi_v = *pi_s;
 #pragma unroll
     for (int c = 0; c < BN / 8; ++c) {
         const int a = 8 * c + 2 * t;
         float* o0 = bt + a * LDC + ((b_shift + (atom0 + a) * n4) & 3) + row;
         float* o1 = bt + (a + 1) * LDC
                     + ((b_shift + (atom0 + a + 1) * n4) & 3) + row;
-        o0[0] = fmaf(pi, o0[0], sum[4 * c]);
-        o1[0] = fmaf(pi, o1[0], sum[4 * c + 1]);
-        o0[8] = fmaf(pi, o0[8], sum[4 * c + 2]);
-        o1[8] = fmaf(pi, o1[8], sum[4 * c + 3]);
+        o0[0] = fmaf(pi_v, o0[0], sum[4 * c]);
+        o1[0] = fmaf(pi_v, o1[0], sum[4 * c + 1]);
+        o0[8] = fmaf(pi_v, o0[8], sum[4 * c + 2]);
+        o1[8] = fmaf(pi_v, o1[8], sum[4 * c + 3]);
     }
     __syncthreads();
     const int64_t f_end = f0 + BM < n ? f0 + BM : n;
@@ -538,7 +543,7 @@ int block_atoms(int k) {
 
 template <int BN, bool AL>
 int launch(float* B, const float* SC, const float* X, float* scratch, int k,
-           int64_t n, int m, float pi, cudaStream_t stream) {
+           int64_t n, int m, const float* pi, cudaStream_t stream) {
     using C = Cfg<BN>;
     auto kernel = ema_gemm_tf32x3<BN, AL>;
     // set on every call: the attribute belongs to the current device
@@ -584,12 +589,15 @@ extern "C" int64_t modl_ema_scratch_floats(int k, int m) {
     return k > 0 && m > 0 ? scratch_floats(k, m) : 0;
 }
 
-// B (k, n), SC (m, k), X (m, n): float32, row-major, contiguous; scratch
-// holds modl_ema_scratch_floats(k, m) floats. Launches the split and the
+// B (k, n), SC (m, k), X (m, n): float32, row-major, contiguous; pi one
+// float in device memory, read by the kernel (so a launch captured in a
+// graph takes the value it finds there at each replay); scratch holds
+// modl_ema_scratch_floats(k, m) floats. Launches the split and the
 // product on ``stream`` and returns the first cudaError_t (0 on success).
 extern "C" int modl_ema_accumulate_f32(float* B, const float* SC,
                                        const float* X, int k, int64_t n,
-                                       int m, float pi, float* scratch,
+                                       int m, const float* pi,
+                                       float* scratch,
                                        void* stream) {
     if (k <= 0 || n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;

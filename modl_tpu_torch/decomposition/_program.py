@@ -1,10 +1,12 @@
-"""The SOMF step as one device program: the counterpart of the JAX
-package's ``somf_step_jit`` (``modl_tpu/decomposition/_step.py:825``),
-which runs an interactive step as one XLA dispatch.
+"""The SOMF step and the fused epoch as device programs: the
+counterparts of the JAX package's ``somf_step_jit``
+(``modl_tpu/decomposition/_step.py:825``), which runs an interactive
+step as one XLA dispatch, and of its jitted ``somf_scan`` (``:939``),
+which runs an epoch of resident minibatches as one.
 
 A :class:`StepProgram` owns static device buffers for a step's inputs
-(the batch rows, their sample indices, and the subset, order and
-scalars of :class:`_step.DrawLayout`), a pinned staging ring
+(the batch rows, their sample indices, and the subset or window start,
+order and scalars of :class:`_step.DrawLayout`), a pinned staging ring
 (:class:`_step.DrawStaging`) and, on CUDA, one ``torch.cuda.CUDAGraph``
 of ``_step._step_body`` over those buffers and the state's leaves. A
 step draws on the host generator exactly as ``somf_step`` does, stages
@@ -12,16 +14,28 @@ the draws and scalars in one non-blocking copy and the rows in one
 device copy (:meth:`StepProgram.stage`), and replays the graph
 (:meth:`StepProgram.run`): the host issues three copies and one graph
 launch, reads nothing back, and waits for the card only when the ring
-is two steps ahead of it. The first step runs the body eagerly on a
-side stream (the warm-up ``torch.cuda.graphs`` asks for) and is then
-captured; the capture itself launches nothing. On the CPU, which only
-the tests ask for, ``run`` calls the same body on the same buffers.
+is two steps ahead of it.
 
-Which configurations run as a program is decided from the configuration
+A :class:`ScanProgram` does the same for an epoch of T batches of b
+rows: its buffers hold the epoch's rows (T, b, n_stored), sample
+indices and T rows of draws and scalars, and its graph holds
+``_step._scan_body``: every step body with its BCD (and, for l1 codes,
+FISTA) launches and every deferred-B segment end with its EMA-GEMM
+launch, whose ``pi`` is read from the staged scalars. An epoch draws on
+the host generator as ``draw_epoch`` does, stages the draws and scalars
+(``_step.epoch_scalars``) in one non-blocking copy, gathers or copies
+the rows into the row buffer (:meth:`ScanProgram.stage`) and replays
+the graph (:meth:`ScanProgram.run`).
+
+The first run of a program runs its body eagerly on a side stream (the
+warm-up ``torch.cuda.graphs`` asks for) and is then captured; the
+capture itself launches nothing. On the CPU, which only the tests ask
+for, ``run`` calls the same body on the same buffers.
+
+Which configurations run as programs is decided from the configuration
 alone by :func:`capturable`; the others step eagerly through
-``somf_step``, each for a reason:
+``somf_step`` and ``somf_scan``, each for a reason:
 
-- windowed subsets: the window start is a host int that slices D;
 - ``code_solver='cd'``: it reads a convergence flag every sweep;
 - ridge codes on per-row Grams (``G_agg='average'``): the batched
   Cholesky solve goes to MAGMA, whose ``spotrs_batched`` allocates
@@ -31,44 +45,48 @@ alone by :func:`capturable`; the others step eagerly through
 - the plain BCD path (``use_kernel`` off: the CPU, or the kernel's
   plain version on the card), which reads the atom order back.
 
-A capture that fails raises; nothing falls back to the eager step. A
-program is tied to one state object, configuration, batch size and the
-addresses of the state's leaves (:meth:`StepProgram.holds`); the
-estimator builds a new one when any of them changes. The kernels'
-launch counters count launches that ran: a capture records what it
-would launch and each replay adds that (``LAUNCHES`` of ``ops.bcd`` and
-``ops.fista``).
+A capture that fails raises; nothing falls back to the eager step or
+scan. A program is tied to one state object, configuration, shape and
+the addresses of the state's leaves (``holds``); the estimator builds a
+new one when any of them changes. The kernels' launch counters count
+launches that ran: a capture records what it would launch and each
+replay adds that (``LAUNCHES`` of ``ops.bcd``, ``ops.fista`` and
+``ops.ema_gemm``).
 """
 import time
 
 import torch
 
-from ..ops import bcd, fista
-from ._step import (DrawLayout, DrawStaging, _step_body, draw_step,
-                    step_scalars)
+from ..ops import bcd, ema_gemm, fista
+from ._step import (DrawLayout, DrawStaging, _scan_body, _step_body,
+                    draw_step, epoch_scalars, step_scalars)
 
-__all__ = ["StepProgram", "capturable", "CAPTURES", "STEPS"]
+__all__ = ["StepProgram", "ScanProgram", "capturable", "CAPTURES", "STEPS",
+           "EPOCHS"]
 
-# graphs captured and steps run by programs (read by chip_smoke.py)
+# graphs captured, steps run by step programs and epochs run by scan
+# programs (read by chip_smoke.py)
 CAPTURES = 0
 STEPS = 0
+EPOCHS = 0
 
 AGGREGATORS = ('full', 'masked', 'average')
 # the state's leaves a step reads or writes on the device
 LEAVES = ('D', 'C', 'B', 'G', 'comp_norm', 'code', 'Dx_avg', 'G_avg',
           'sample_n_iter')
-# the launch counters of the kernels a step launches
-COUNTED = (bcd, fista)
+# the launch counters of the kernels a program launches
+COUNTED = (bcd, fista, ema_gemm)
 
 
 def capturable(cfg):
-    """Whether steps of ``cfg`` run as a :class:`StepProgram`: gather
-    subsets (with or without ``rand_size``), the ``variational`` or
-    ``sgd`` optimizer, any aggregators, FISTA codes, or ridge codes on a
-    shared Gram (``G_agg`` not ``'average'``), the kernels on
-    (``use_kernel``: CUDA, float32), no mesh, no ``average_offload``."""
+    """Whether steps and epochs of ``cfg`` run as programs: gather or
+    windowed subsets (with or without ``rand_size``), the
+    ``variational`` or ``sgd`` optimizer, any aggregators, FISTA codes,
+    or ridge codes on a shared Gram (``G_agg`` not ``'average'``), the
+    kernels on (``use_kernel``: CUDA, float32), no mesh, no
+    ``average_offload``."""
     ridge = cfg.code_l1_ratio == 0.0
-    return (cfg.use_kernel and not cfg.windowed
+    return (cfg.use_kernel
             and cfg.optimizer in ('variational', 'sgd')
             and cfg.Dx_agg in AGGREGATORS and cfg.G_agg in AGGREGATORS
             and (cfg.G_agg != 'average' if ridge
@@ -81,61 +99,48 @@ def _addresses(state):
                  else getattr(state, name).data_ptr() for name in LEAVES)
 
 
-class StepProgram:
-    """The step of ``cfg`` at batch size ``batch_size`` on ``state``, as
-    one captured graph on CUDA (see the module docstring).
+class _Program:
+    """What both programs share: the state, configuration and leaf
+    addresses they are tied to, the draws' layout and staging ring, and
+    the run (the body on the CPU; capture, then replays, on CUDA).
 
     ``capture_s`` holds the seconds the capture took (``None`` before
     it), ``graph`` the ``torch.cuda.CUDAGraph`` once captured, and
     ``launches`` the ``(counter module, launches)`` a replay makes."""
 
-    def __init__(self, state, cfg, batch_size):
+    def __init__(self, state, cfg):
         if not capturable(cfg):
-            raise ValueError('this configuration does not run as a step '
+            raise ValueError('this configuration does not run as a device '
                              'program (see _program.capturable)')
-        D = state.D
-        self.device = D.device
-        self.state, self.cfg, self.batch_size = state, cfg, batch_size
+        self.device = state.D.device
+        self.state, self.cfg = state, cfg
         # the leaves are held, so no new tensor takes their addresses
         self.leaves = [getattr(state, name) for name in LEAVES]
         self.addresses = _addresses(state)
-        self.layout = DrawLayout.of(cfg, D.dtype)
-        self.X = torch.zeros((batch_size, D.shape[1]), dtype=D.dtype,
-                             device=self.device)
-        self.idx = torch.zeros(batch_size, dtype=torch.int64,
-                               device=self.device)
-        self.draws = torch.zeros(self.layout.nbytes, dtype=torch.uint8,
-                                 device=self.device)
-        self.subset, self.order, self.scalars = self.layout.views(
-            self.draws)
+        self.layout = DrawLayout.of(cfg, state.D.dtype)
         self.staging = DrawStaging(self.device)
         self.graph = None
         self.launches = None
         self.capture_s = None
 
-    def holds(self, state, cfg, batch_size):
-        """Whether this program steps ``state`` under ``cfg`` at
-        ``batch_size``, with its leaves where they were."""
+    def _buffers(self, shape, n_steps):
+        """Static buffers: rows (``shape`` + (n_stored,)), sample indices
+        (``shape``) and the draws of ``n_steps`` steps (uint8, a
+        ``DrawLayout.nbytes`` row each)."""
+        D = self.state.D
+        self.X = torch.zeros(shape + (D.shape[1],), dtype=D.dtype,
+                             device=self.device)
+        self.idx = torch.zeros(shape, dtype=torch.int64, device=self.device)
+        self.draws = torch.zeros(n_steps * self.layout.nbytes,
+                                 dtype=torch.uint8, device=self.device)
+
+    def _holds(self, state, cfg):
         return (state is self.state and cfg == self.cfg
-                and batch_size == self.batch_size
                 and _addresses(state) == self.addresses)
 
-    def stage(self, X_rows, idx, draws, scalars):
-        """Put a step's inputs in the static buffers: the host ``draws``
-        ``(subset, order)`` and ``scalars`` (``_step.step_scalars``) in
-        one non-blocking copy through the ring, the rows ``X_rows`` and
-        sample indices ``idx`` (device tensors) by device copies."""
-        subset, order = draws
-        self.staging.send(self.layout, subset, order, scalars,
-                          out=self.draws)
-        self.X.copy_(X_rows)
-        self.idx.copy_(idx)
-
-    def run(self):
-        """Run the staged step: replay the graph (capture it at the first
-        step, after running that step as the warm-up) on CUDA; the body
-        on the buffers on the CPU."""
-        global STEPS
+    def _run(self):
+        """Replay the graph (capture it at the first run, after running
+        the body as the warm-up) on CUDA; the body on the CPU."""
         if self.device.type != 'cuda':
             self._body()
         elif self.graph is None:
@@ -144,24 +149,10 @@ class StepProgram:
             self.graph.replay()
             for module, n in self.launches:
                 module.LAUNCHES += n
-        STEPS += 1
-
-    def step(self, X_rows, idx):
-        """One minibatch update of the state: host draws and scalars as
-        ``somf_step`` makes them, :meth:`stage`, :meth:`run`."""
-        subset, n_valid, order = draw_step(self.state, self.cfg)
-        scalars = step_scalars(self.state, self.cfg, self.batch_size,
-                               n_valid)
-        self.stage(X_rows, idx, (subset, order), scalars)
-        self.run()
-
-    def _body(self):
-        _step_body(self.state, self.X, self.idx, self.subset, self.order,
-                   self.scalars, self.cfg, self.cfg.rand_size)
 
     def _capture(self):
-        """The staged step eagerly on a side stream, then the capture of
-        the body (which runs nothing) on the same stream."""
+        """The staged inputs' run eagerly on a side stream, then the
+        capture of the body (which runs nothing) on the same stream."""
         global CAPTURES
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -184,3 +175,108 @@ class StepProgram:
         main.wait_stream(side)
         self.graph = graph
         CAPTURES += 1
+
+
+class StepProgram(_Program):
+    """The step of ``cfg`` at batch size ``batch_size`` on ``state``, as
+    one captured graph on CUDA (see the module docstring)."""
+
+    def __init__(self, state, cfg, batch_size):
+        super().__init__(state, cfg)
+        self.batch_size = batch_size
+        self._buffers((batch_size,), 1)
+        self.subset, self.order, self.scalars = self.layout.views(
+            self.draws)
+
+    def holds(self, state, cfg, batch_size):
+        """Whether this program steps ``state`` under ``cfg`` at
+        ``batch_size``, with its leaves where they were."""
+        return self._holds(state, cfg) and batch_size == self.batch_size
+
+    def stage(self, X_rows, idx, draws, scalars):
+        """Put a step's inputs in the static buffers: the host ``draws``
+        ``(subset, order)`` and ``scalars`` (``_step.step_scalars``) in
+        one non-blocking copy through the ring, the rows ``X_rows`` and
+        sample indices ``idx`` (device tensors) by device copies."""
+        subset, order = draws
+        self.staging.send(self.layout, subset, order, scalars,
+                          out=self.draws)
+        self.X.copy_(X_rows)
+        self.idx.copy_(idx)
+
+    def run(self):
+        """Run the staged step (:meth:`_Program._run`)."""
+        global STEPS
+        self._run()
+        STEPS += 1
+
+    def step(self, X_rows, idx):
+        """One minibatch update of the state: host draws and scalars as
+        ``somf_step`` makes them, :meth:`stage`, :meth:`run`."""
+        subset, n_valid, order = draw_step(self.state, self.cfg)
+        scalars = step_scalars(self.state, self.cfg, self.batch_size,
+                               n_valid)
+        self.stage(X_rows, idx, (subset, order), scalars)
+        self.run()
+
+    def _body(self):
+        _step_body(self.state, self.X, self.idx, self.subset, self.order,
+                   self.scalars, self.cfg, self.cfg.rand_size)
+
+
+class ScanProgram(_Program):
+    """The fused epoch of ``cfg`` over ``n_batches`` batches of
+    ``batch_size`` rows on ``state``, as one captured graph on CUDA (see
+    the module docstring): ``_step.somf_scan`` with its inputs in static
+    buffers. ``X`` holds the epoch's rows (T, b, n_stored), ``idx`` their
+    sample indices (T, b) and ``steps`` each step's ``(subset, order,
+    scalars)`` views of the staged draws."""
+
+    def __init__(self, state, cfg, n_batches, batch_size):
+        super().__init__(state, cfg)
+        self.n_batches, self.batch_size = n_batches, batch_size
+        self._buffers((n_batches, batch_size), n_batches)
+        nb = self.layout.nbytes
+        self.steps = [self.layout.views(self.draws[t * nb:(t + 1) * nb])
+                      for t in range(n_batches)]
+
+    def holds(self, state, cfg, n_batches, batch_size):
+        """Whether this program runs epochs of ``n_batches`` batches of
+        ``batch_size`` on ``state`` under ``cfg``, with its leaves where
+        they were."""
+        return (self._holds(state, cfg) and n_batches == self.n_batches
+                and batch_size == self.batch_size)
+
+    def stage(self, X, idx, draws, rows=None):
+        """Put an epoch's inputs in the static buffers: the host ``draws``
+        (a ``_step.Draws``) and their scalars (``_step.epoch_scalars``,
+        which advances the sample counter) in one non-blocking copy
+        through the ring; the rows ``X[rows]`` by one gather
+        (``rows`` a device index of T b rows) or the first T b rows of
+        ``X`` by one device copy, and the sample indices ``idx`` (T b,
+        on the device) by another."""
+        T, b = self.n_batches, self.batch_size
+        scalars = epoch_scalars(self.state, self.cfg, b, draws.sizes)
+        self.staging.send_steps(
+            self.layout, list(zip(draws.subsets, draws.orders, scalars)),
+            out=self.draws)
+        flat = self.X.view(T * b, -1)
+        if rows is None:
+            flat.copy_(X[:T * b])
+        else:
+            torch.index_select(X, 0, rows, out=flat)
+        self.idx.view(-1).copy_(idx)
+
+    def run(self):
+        """Run the staged epoch (:meth:`_Program._run`)."""
+        global EPOCHS
+        self._run()
+        EPOCHS += 1
+
+    def epoch(self, X, idx, draws, rows=None):
+        """One epoch of the state: :meth:`stage`, :meth:`run`."""
+        self.stage(X, idx, draws, rows)
+        self.run()
+
+    def _body(self):
+        _scan_body(self.state, self.X, self.idx, self.cfg, self.steps)

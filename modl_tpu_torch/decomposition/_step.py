@@ -16,13 +16,18 @@ in place where JAX's immutability forced copies: every leaf keeps its
 tensor (and its address) across steps, which the captured step of
 ``_program.py`` relies on. Draws (window starts, Binomial sizes, atom
 orders) are made on a host generator ahead of the step, and the step's
-scalars (the batch weight and what derives from it, the Binomial size)
-are computed on the host (:func:`step_scalars`). ``somf_step`` sends a
-step's subset, order and scalars to the device in one non-blocking copy
-from pinned memory (:class:`DrawStaging`), so the step body
+scalars (the batch weight and what derives from it, the Binomial size,
+the deferred-B segment's decay product) are computed on the host
+(:func:`step_scalars`). ``somf_step`` sends a step's subset or window
+start, order and scalars to the device in one non-blocking copy from
+pinned memory (:class:`DrawStaging`), and ``somf_scan`` a whole
+epoch's in one copy (:func:`stage_epoch`), so the step body
 (``_step_body``) takes every value that changes from step to step from
 device tensors, reads nothing back and never makes the host wait for
-the card.
+the card. A window start on the device addresses its columns by a
+gather at ``start + arange(width)`` (the JAX package's
+``lax.dynamic_slice``) and writes them back by two index copies
+(:func:`_writeback_window_at`).
 
 On a mesh (``cfg.mesh``, a state sharded by ``parallel.mesh.
 shard_state``) the same step body runs on every rank over its shards,
@@ -136,11 +141,13 @@ def _width(cfg, subset):
     return subset.shape[0]
 
 
-def _subset_cols(A, subset, width, cfg):
+def _subset_cols(A, subset, width):
     """Columns of A addressed by a subset: the window ``[start, start +
-    width)`` (a view; the mirror pad makes circular windows contiguous)
-    or a gather at an index tensor (a copy)."""
-    if cfg.windowed:
+    width)`` of a host start (a view; the mirror pad makes circular
+    windows contiguous) or a gather at an index tensor (a copy): a
+    gather subset, or a window's columns ``start + arange(width)`` of a
+    start on the device."""
+    if isinstance(subset, int):
         return A[:, subset:subset + width]
     return A[:, subset]
 
@@ -168,6 +175,23 @@ def _writeback_window(D, V, start, n_log, base=0):
         lo, hi = max(lo, base), min(hi, stop)
         if lo < hi:
             D[:, lo - base:hi - base] = V[:, lo - src:hi - src]
+
+
+def _writeback_window_at(D, V, cols, n_log):
+    """:func:`_writeback_window` for a window on the device: ``cols`` =
+    ``start + arange(s)`` (s = V.shape[1] <= n_log, the mirror pad's
+    width). Two index copies of V: the window at its columns, then each
+    window column's other copy, distinct columns all: ``c - n_log`` for
+    a column of the mirror (c >= n_log: the head it wraps into),
+    ``c + n_log`` for a column of the head (c < s: its mirror), else
+    ``c`` itself again with the same value. The JAX package's
+    "purewrite" form (``modl_tpu/decomposition/_step.py``) writes the
+    same values; no column is read back."""
+    s = V.shape[1]
+    D.index_copy_(1, cols, V)
+    other = torch.where(cols >= n_log, cols - n_log,
+                        torch.where(cols < s, cols + n_log, cols))
+    D.index_copy_(1, other, V)
 
 
 class _Local:
@@ -220,28 +244,30 @@ class _Local:
 
     def cols(self, A, subset, width, cfg):
         """The subset's columns of A (D, B or X), whole."""
-        return _subset_cols(A, subset, width, cfg)
+        return _subset_cols(A, subset, width)
 
     def write_cols(self, D, subset, V, cfg):
         """Write the subset's new columns V into D."""
-        if cfg.windowed:
+        if not cfg.windowed:
+            D[:, subset] = V
+        elif isinstance(subset, int):
             _writeback_window(D, V, subset, cfg.n_features)
         else:
-            D[:, subset] = V
+            _writeback_window_at(D, V, subset, cfg.n_features)
 
     def window_grad(self, B0, SC, Xseg, start, width, pi, cfg):
         """The gradient window ``pi B0[:, win] + SC^T Xseg[:, win]`` of a
-        deferred-B segment."""
-        return (float(pi) * _subset_cols(B0, start, width, cfg)
-                + SC.T @ _subset_cols(Xseg, start, width, cfg))
+        deferred-B segment (``pi`` a 0-d tensor)."""
+        return (pi * _subset_cols(B0, start, width)
+                + SC.T @ _subset_cols(Xseg, start, width))
 
     def segment_end(self, B, SC, Xseg, pi, kernel):
-        """``B <- pi B + SC^T Xseg`` in place: the EMA-GEMM kernel
-        (``kernel``) or one ``addmm_``."""
+        """``B <- pi B + SC^T Xseg`` in place (``pi`` a 0-d tensor on B's
+        device): the EMA-GEMM kernel (``kernel``) or its plain version."""
         if kernel:
             ema_gemm.ema_accumulate(B, SC, Xseg, pi)
         else:
-            B.addmm_(SC.T, Xseg, beta=float(pi))
+            ema_gemm.ema_accumulate_reference(B, SC, Xseg, pi)
 
 
 class _Sharded(_Local):
@@ -341,7 +367,7 @@ class _Sharded(_Local):
         cols = slice(l0, l0 + j1 - j0)
         part = SC.T @ Xseg[:, cols]
         if self.lead:
-            part += float(pi) * B0[:, cols]
+            part += pi * B0[:, cols]
         part = self.sum_rows(part)
         if not self.split_cols:
             return part
@@ -353,7 +379,7 @@ class _Sharded(_Local):
         # B0 is replicated over dp: only the lead rank's sum carries it
         if not self.lead:
             B.zero_()
-            pi = 0.0
+            pi = torch.zeros_like(pi)
         super().segment_end(B, SC, Xseg, pi, kernel)
         self.sum_rows(B)
 
@@ -525,7 +551,7 @@ def _update_dict(D, G, comp_norm, C, grad_subset, subset, w_step, order,
     s = _width(cfg, subset)
     dtype = D.dtype
     D_cols = ctx.cols(D, subset, s, cfg)
-    if cfg.windowed and not ctx.split_cols:   # a view of D: copy first
+    if isinstance(subset, int) and not ctx.split_cols:  # a view: copy it
         D_cols = D_cols.clone(memory_format=torch.contiguous_format)
     if n_valid is not None:
         validf = _valid_mask(s, n_valid, dtype, D.device)[None, :]
@@ -569,40 +595,65 @@ def _update_dict(D, G, comp_norm, C, grad_subset, subset, w_step, order,
 
 
 # the step's scalars, in the state's dtype: the batch weight w, the decay
-# 1 - w, w / b, the Binomial size n_valid (0 without one) and the sgd
-# step w * step_size
-N_SCALARS = 5
+# 1 - w, w / b, the Binomial size n_valid (0 without one), the sgd step
+# w * step_size and pi, the product of the decays since the step's
+# deferred-B segment began (this step's included)
+N_SCALARS = 6
+PI = 5
 
 
-def step_scalars(state: SomfState, cfg: SomfConfig, b, n_valid):
+def step_scalars(state: SomfState, cfg: SomfConfig, b, n_valid, pi=1.0):
     """Advance the sample counter by a batch of ``b`` and return the
     step's scalars (``N_SCALARS``) as a numpy array of the state's dtype.
     The weight is numpy in that dtype (``batch_weight``); ``w / b`` and
     ``w * step_size`` are taken in double and rounded to it, as the
-    kernels' cast of a Python float rounded them."""
+    kernels' cast of a Python float rounded them; ``pi`` is the previous
+    step's decay product in the segment (1 at its first step) times
+    this step's decay, rounded to the dtype."""
     np_dtype = _np_dtype(state.D.dtype)
     state.n_iter += b
     w = batch_weight(state.n_iter, b, cfg.learning_rate, 0.0, np_dtype)
-    return np.array([w, np_dtype.type(1.0) - w, float(w) / b,
+    decay = np_dtype.type(1.0) - w
+    return np.array([w, decay, float(w) / b,
                      0 if n_valid is None else n_valid,
-                     float(w) * cfg.step_size], np_dtype)
+                     float(w) * cfg.step_size,
+                     np_dtype.type(pi) * decay], np_dtype)
+
+
+def epoch_scalars(state: SomfState, cfg: SomfConfig, b, sizes):
+    """The (T, N_SCALARS) scalars of an epoch of ``len(sizes)`` steps
+    (:func:`step_scalars` in turn), ``pi`` restarting at each deferred-B
+    segment of :func:`_deferred_seg`."""
+    seg = _deferred_seg(cfg, len(sizes))
+    rows = []
+    for t, n_valid in enumerate(sizes):
+        pi = rows[-1][PI] if seg >= 2 and t % seg else 1.0
+        rows.append(step_scalars(state, cfg, b, n_valid, pi))
+    return np.stack(rows)
 
 
 @precise
 def _step_body(state: SomfState, X, sample_indices, subset, order,
                scalars, cfg: SomfConfig, sized, deferred=None):
     """The step's device work: every value that changes from step to step
-    is a tensor (``subset``, ``order``, the ``scalars`` of
-    :func:`step_scalars`; a window start is a host int, and windowed
-    steps are never captured), and every state leaf is written in place.
-    ``sized``: the subset's columns from ``n_valid`` on are masked.
-    ``deferred`` is :func:`somf_step_inner`'s, with ``pi`` already
-    advanced by this step's decay."""
-    w, decay, w_b, n_valid, w_step = scalars.unbind()
+    is a tensor (``subset`` or a window's start, ``order``, the
+    ``scalars`` of :func:`step_scalars`; a mesh keeps its window start a
+    host int, and a host start slices), and every state leaf is written
+    in place. ``sized``: the subset's columns from ``n_valid`` on are
+    masked. ``deferred`` = ``(B0, Xseg, SC, trow)`` (windowed fused
+    epochs, :func:`_scan_body`): B's full-width EMA is not applied; the
+    segment's scaled code buffer SC (this rank's rows, updated in place)
+    advances instead, and the gradient window is ``pi B0[:, win] + SC^T
+    Xseg[:, win]`` with the step's ``pi``."""
+    w, decay, w_b, n_valid, w_step, pi = scalars.unbind()
     n_valid = n_valid if sized else None
     b = sample_indices.shape[0]
     ctx = _context(state, cfg, sample_indices)
     n_features = cfg.n_features if cfg.windowed else ctx.n_stored
+    width = cfg.len_max if cfg.rand_size else cfg.len_subset
+    if cfg.windowed and torch.is_tensor(subset):
+        # the window's columns, gathered wherever the step reads them
+        subset = subset + torch.arange(width, device=subset.device)
 
     # --- step weights ---
     ctx.visit(state.sample_n_iter)
@@ -624,7 +675,7 @@ def _step_body(state: SomfState, X, sample_indices, subset, order,
             # one rounding of w / b times the product, as add_(alpha=)
             state.B.mul_(decay).addcmul_(ctx.sum_rows(code_rows.T @ X), w_b)
         else:
-            B0, Xseg, SC, pi, trow = deferred
+            B0, Xseg, SC, trow = deferred
             m = code_rows.shape[0]
             SC.mul_(decay)
             SC[trow * m:(trow + 1) * m] = w_b * code_rows
@@ -633,7 +684,6 @@ def _step_body(state: SomfState, X, sample_indices, subset, order,
         state.B.copy_(ctx.sum_rows(code_rows.T @ X) / b)
 
     # --- dictionary update on the subset columns ---
-    width = cfg.len_max if cfg.rand_size else cfg.len_subset
     if deferred is None or cfg.optimizer != 'variational':
         grad_subset = ctx.cols(state.B, subset, width, cfg)
     else:
@@ -654,84 +704,79 @@ def _device_scalars(host, device):
 
 
 def somf_step_inner(state: SomfState, X, sample_indices, subset, order,
-                    cfg: SomfConfig, n_valid=None, deferred=None):
-    """The step given a drawn subset (window start or index tensor on
-    the device), Binomial size ``n_valid`` (a host int) and atom
-    ``order``: :func:`step_scalars`, then the step body. Updates
-    ``state`` in place and returns it; the sampler fields are untouched.
+                    cfg: SomfConfig, n_valid=None):
+    """The step given a drawn subset (a window start, as a host int or a
+    0-d device tensor, or an index tensor on the device), Binomial size
+    ``n_valid`` (a host int) and atom ``order``: :func:`step_scalars`,
+    then the step body. Updates ``state`` in place and returns it; the
+    sampler fields are untouched. A host window start slices, a device
+    one gathers.
 
     On a mesh (``cfg.mesh``; ``state`` sharded) ``X`` is this rank's
     block of the batch (``parallel.mesh.shard_batch``) and
-    ``sample_indices`` the whole batch's global sample indices.
-
-    ``deferred`` = ``(B0, Xseg, SC, pi, trow)`` (windowed fused epochs):
-    B's full-width EMA is not applied; the segment's scaled code buffer
-    SC (this rank's rows, updated in place) and decay product ``pi``
-    (host scalar) advance instead, and the gradient window is ``pi
-    B0[:, win] + SC^T Xseg[:, win]``. Returns ``(state, SC, pi)`` then;
-    ``somf_scan`` materialises ``B = pi B0 + SC^T Xseg`` at the
-    segment's end.
-    """
+    ``sample_indices`` the whole batch's global sample indices."""
     host = step_scalars(state, cfg, sample_indices.shape[0], n_valid)
-    if deferred is not None:
-        B0, Xseg, SC, pi, trow = deferred
-        pi = host.dtype.type(pi * host[1])
-        deferred = (B0, Xseg, SC, pi, trow)
-    _step_body(state, X, sample_indices, subset, order,
-               _device_scalars(host, state.D.device), cfg,
-               n_valid is not None, deferred=deferred)
-    if deferred is None:
-        return state
-    return state, SC, pi
+    return _step_body(state, X, sample_indices, subset, order,
+                      _device_scalars(host, state.D.device), cfg,
+                      n_valid is not None)
 
 
 class DrawLayout:
     """Where a step's draws lie in one byte buffer: the subset's
-    ``width`` int64 indices (0 for a window start, which stays a host
-    int), the ``N_SCALARS`` scalars in ``dtype`` and the (k,) int32
-    order, each at an offset its type aligns to."""
+    ``width`` int64 indices (one for a ``window`` start, 0 for none),
+    the ``N_SCALARS`` scalars in ``dtype`` and the (k,) int32 order,
+    each at an offset its type aligns to; ``nbytes`` is a multiple of 8,
+    so that an epoch's steps lie one after another (step t at ``t *
+    nbytes``)."""
 
-    def __init__(self, width, k, dtype):
-        self.width, self.dtype = width, dtype
+    def __init__(self, width, k, dtype, window=False):
+        self.width, self.dtype, self.window = width, dtype, window
         self.itemsize = torch.empty((), dtype=dtype).element_size()
         self.scalars_at = 8 * width
         self.order_at = (self.scalars_at
                          + -(-N_SCALARS * self.itemsize // 8) * 8)
-        self.nbytes = self.order_at + 4 * k
+        self.order_end = self.order_at + 4 * k
+        self.nbytes = -(-self.order_end // 8) * 8
 
     @classmethod
     def of(cls, cfg: SomfConfig, dtype):
-        width = 0 if cfg.windowed else (cfg.len_max if cfg.rand_size
-                                        else cfg.len_subset)
-        return cls(width, cfg.n_components, dtype)
+        if cfg.windowed:
+            return cls(1, cfg.n_components, dtype, window=True)
+        return cls(cfg.len_max if cfg.rand_size else cfg.len_subset,
+                   cfg.n_components, dtype)
 
     def fill(self, buf, subset, order, scalars):
         """Write a step's draws into ``buf`` (a uint8 numpy array)."""
-        if self.width:
+        if self.window:
+            buf[:8].view(np.int64)[0] = subset
+        elif self.width:
             buf[:self.scalars_at].view(np.int64)[:] = subset.numpy()
         buf[self.scalars_at:self.order_at].view(scalars.dtype)[
             :N_SCALARS] = scalars
-        buf[self.order_at:self.nbytes].view(np.int32)[:] = order.numpy()
+        buf[self.order_at:self.order_end].view(np.int32)[:] = order.numpy()
 
     def views(self, buf):
         """``(subset, order, scalars)`` views of a uint8 tensor of
-        ``nbytes`` (``subset`` None for a window start)."""
+        ``nbytes`` (``subset`` a 0-d start for a window, None for no
+        subset)."""
         subset = (buf[:self.scalars_at].view(torch.int64) if self.width
                   else None)
+        if self.window:
+            subset = subset[0]
         scalars = buf[self.scalars_at:self.scalars_at
                       + N_SCALARS * self.itemsize].view(self.dtype)
-        return subset, buf[self.order_at:self.nbytes].view(torch.int32), \
+        return subset, buf[self.order_at:self.order_end].view(torch.int32), \
             scalars
 
 
 class DrawStaging:
     """The host draws' way to the device: two host slots (pinned on
-    CUDA) used in turn. A step's subset, order and scalars are packed into
-    one slot (:class:`DrawLayout`) and sent in one non-blocking copy,
-    after which an event is recorded for the slot; a slot is rewritten
-    only once that event has passed, so a copy in flight never sees its
-    source change. The host waits for the card only there, when it is
-    two steps ahead of it."""
+    CUDA) used in turn. The draws of a step (or of an epoch's steps) are
+    packed into one slot (:class:`DrawLayout`) and sent in one
+    non-blocking copy, after which an event is recorded for the slot; a
+    slot is rewritten only once that event has passed, so a copy in
+    flight never sees its source change. The host waits for the card
+    only there, when it is two sends ahead of it."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -744,16 +789,25 @@ class DrawStaging:
         """Stage a step's draws; returns their ``(subset, order,
         scalars)`` on the device, as views of ``out`` (a uint8 device
         tensor of ``layout.nbytes``) or of a new tensor."""
+        return self.send_steps(layout, [(subset, order, scalars)], out)[0]
+
+    def send_steps(self, layout, steps, out=None):
+        """Stage the draws ``(subset, order, scalars)`` of several steps
+        in one copy; returns each step's views of ``out`` (a uint8 device
+        tensor of ``len(steps) * layout.nbytes``) or of a new tensor."""
         i = self.turn
         self.turn = 1 - i
         if self.events[i] is not None:
             self.events[i].synchronize()
+        nbytes = len(steps) * layout.nbytes
         slot = self.slots[i]
-        if slot is None or slot.shape[0] < layout.nbytes:
+        if slot is None or slot.shape[0] < nbytes:
             slot = self.slots[i] = torch.empty(
-                layout.nbytes, dtype=torch.uint8, pin_memory=self.pinned)
-        slot = slot[:layout.nbytes]
-        layout.fill(slot.numpy(), subset, order, scalars)
+                nbytes, dtype=torch.uint8, pin_memory=self.pinned)
+        slot = slot[:nbytes]
+        host = slot.numpy()
+        for t, (subset, order, scalars) in enumerate(steps):
+            layout.fill(host[t * layout.nbytes:], subset, order, scalars)
         if out is None:
             out = slot.to(self.device, non_blocking=True, copy=True)
         else:
@@ -762,7 +816,8 @@ class DrawStaging:
             if self.events[i] is None:
                 self.events[i] = torch.cuda.Event()
             self.events[i].record()
-        return layout.views(out)
+        return [layout.views(out[t * layout.nbytes:(t + 1) * layout.nbytes])
+                for t in range(len(steps))]
 
 
 def draw_step(state: SomfState, cfg: SomfConfig):
@@ -800,8 +855,10 @@ def draw_epoch(state: SomfState, cfg: SomfConfig, n_batches):
                  orders=torch.stack([d[2] for d in draws]))
 
 
-def _to_device(subset, device):
-    return subset if isinstance(subset, int) else subset.to(device)
+def _host_start(cfg):
+    """Whether the step takes a window start as a host int: windowed
+    subsets on a mesh, whose steps run eagerly (``_Sharded``)."""
+    return cfg.windowed and cfg.mesh is not None
 
 
 def somf_step(state: SomfState, X, sample_indices, cfg: SomfConfig,
@@ -816,8 +873,8 @@ def somf_step(state: SomfState, X, sample_indices, cfg: SomfConfig,
     sent, order, scalars = staging.send(DrawLayout.of(cfg, state.D.dtype),
                                         subset, order, host)
     return _step_body(state, X, sample_indices,
-                      subset if cfg.windowed else sent, order, scalars, cfg,
-                      n_valid is not None)
+                      subset if _host_start(cfg) else sent, order, scalars,
+                      cfg, n_valid is not None)
 
 
 def _deferred_seg(cfg, n_batches):
@@ -831,10 +888,65 @@ def _deferred_seg(cfg, n_batches):
     return int(max(0, min(seg, 16, n_batches)))
 
 
+def stage_epoch(state: SomfState, cfg: SomfConfig, b, draws: Draws,
+                staging):
+    """An epoch's scalars (:func:`epoch_scalars`, at batch size ``b``)
+    and draws sent to the device in one copy through ``staging``.
+    Returns each step's ``(subset, order, scalars)``, the window starts
+    kept host ints on a mesh."""
+    scalars = epoch_scalars(state, cfg, b, draws.sizes)
+    steps = staging.send_steps(
+        DrawLayout.of(cfg, state.D.dtype),
+        list(zip(draws.subsets, draws.orders, scalars)))
+    if _host_start(cfg):
+        steps = [(start,) + step[1:]
+                 for start, step in zip(draws.subsets, steps)]
+    return steps
+
+
 @precise
+def _scan_body(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
+               steps):
+    """The epoch's device work over stacked minibatches, given each
+    step's ``(subset, order, scalars)`` on the device
+    (:func:`stage_epoch`): the step bodies in turn or, for windowed
+    variational configurations, deferred-B segments, each ended by one
+    full-width ``B <- pi B + SC^T Xseg`` in place with the segment's
+    last ``pi``. Every value that changes from epoch to epoch is read
+    from those tensors, so ``_program.ScanProgram`` captures this."""
+    T = len(steps)
+    seg = _deferred_seg(cfg, T)
+    if seg < 2:
+        for t in range(T):
+            _step_body(state, X_batches[t], idx_batches[t], *steps[t], cfg,
+                       cfg.rand_size)
+        return state
+    ctx = _context(state, cfg, idx_batches[0])
+    m = X_batches.shape[1]          # this rank's rows of a batch
+    kernel = cfg.use_kernel and ema_gemm.supported(
+        cfg.n_components, state.B.shape[1], seg * m, state.B.dtype)
+    for pos in range(0, T, seg):
+        L = min(seg, T - pos)
+        Xseg = X_batches[pos:pos + L].reshape(L * m, -1)
+        SC = torch.zeros((L * m, cfg.n_components), dtype=state.D.dtype,
+                         device=state.D.device)
+        for trow in range(L):
+            t = pos + trow
+            _step_body(state, X_batches[t], idx_batches[t], *steps[t], cfg,
+                       cfg.rand_size, deferred=(state.B, Xseg, SC, trow))
+        # one full-width pass materialises the segment's B, in place: the
+        # EMA-GEMM kernel where its gate allows (on by default), else its
+        # plain version; on a mesh each rank's column slab, summed over dp
+        ctx.segment_end(state.B, SC, Xseg, steps[pos + L - 1][2][PI],
+                        kernel)
+    return state
+
+
 def somf_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
-              draws: Draws):
-    """Fused epoch over stacked minibatches with the given host draws.
+              draws: Draws, staging=None):
+    """Fused epoch over stacked minibatches with the given host draws,
+    run eagerly: :func:`stage_epoch` (through ``staging``, a new
+    :class:`DrawStaging` by default), then :func:`_scan_body`.
 
     X_batches (T, b, n_stored) and idx_batches (T, b) on the device (on
     a mesh, this rank's block of X_batches, ``parallel.mesh.
@@ -842,42 +954,10 @@ def somf_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
     configs run deferred-B segments: the same math as T calls of the
     step, with B's full-width EMA applied once per segment (in place)
     instead of once per batch."""
-    T = idx_batches.shape[0]
-    device = state.D.device
-    orders = draws.orders.to(device, torch.int32)
-    subsets = [_to_device(sub, device) for sub in draws.subsets]
-    seg = _deferred_seg(cfg, T)
-    if seg < 2:
-        for t in range(T):
-            somf_step_inner(state, X_batches[t], idx_batches[t], subsets[t],
-                            orders[t], cfg, n_valid=draws.sizes[t])
-        return state
-    np_dtype = _np_dtype(state.D.dtype)
-    ctx = _context(state, cfg, idx_batches[0])
-    m = X_batches.shape[1]          # this rank's rows of a batch
-    pos = 0
-    while pos < T:
-        L = min(seg, T - pos)
-        Xseg = X_batches[pos:pos + L].reshape(L * m, -1)
-        B0 = state.B
-        SC = torch.zeros((L * m, cfg.n_components), dtype=state.D.dtype,
-                         device=device)
-        pi = np_dtype.type(1.0)
-        for trow in range(L):
-            t = pos + trow
-            state, SC, pi = somf_step_inner(
-                state, X_batches[t], idx_batches[t], subsets[t], orders[t],
-                cfg, n_valid=draws.sizes[t],
-                deferred=(B0, Xseg, SC, pi, trow))
-        # one full-width pass materialises the segment's B, in place: the
-        # EMA-GEMM kernel where its gate allows (on by default), else one
-        # addmm_; on a mesh each rank's column slab, summed over dp
-        ctx.segment_end(state.B, SC, Xseg, pi, cfg.use_kernel and
-                        ema_gemm.supported(cfg.n_components,
-                                           state.B.shape[1], Xseg.shape[0],
-                                           state.B.dtype))
-        pos += L
-    return state
+    if staging is None:
+        staging = DrawStaging(state.D.device)
+    steps = stage_epoch(state, cfg, idx_batches.shape[1], draws, staging)
+    return _scan_body(state, X_batches, idx_batches, cfg, steps)
 
 
 def offload_supported(device):
@@ -930,11 +1010,13 @@ def offload_scan(state: SomfState, X_batches, idx_batches, cfg: SomfConfig,
         Dx_avg=gather(state.Dx_avg), code=gather(state.code),
         sample_n_iter=state.sample_n_iter[rows_dev])
     inner = dataclasses.replace(cfg, average_offload=False)
-    orders = draws.orders.to(device, torch.int32)
+    # the draws in one copy; the steps as somf_step takes them (B's EMA
+    # every step: the scalars' pi goes unread)
+    steps = stage_epoch(seg, inner, idx_batches.shape[1], draws,
+                        DrawStaging(device))
     for t in range(T):
-        somf_step_inner(seg, X_batches[t], local[t],
-                        _to_device(draws.subsets[t], device), orders[t],
-                        inner, n_valid=draws.sizes[t])
+        _step_body(seg, X_batches[t], local[t], *steps[t], inner,
+                   inner.rand_size)
     buf.copy_(seg.G_avg, non_blocking=True)
     if device.type == 'cuda':
         torch.cuda.current_stream(device).synchronize()

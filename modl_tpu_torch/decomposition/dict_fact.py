@@ -104,10 +104,11 @@ class _PickleStateMixin:
     with the generator's state, and comes back with ``G_avg`` in host
     RAM, where the next ``partial_fit`` places it; the tensor attributes
     named in ``_DEVICE_FIELDS`` go as plain arrays; the transient
-    buffers (``_offload_staging``, ``_draw_staging``) and the step program
-    (``_program``) are dropped. A mesh is dropped too (the JAX
-    package's mixin does the same): a sharded state is gathered whole
-    (every rank pickles) and loads as a single-process estimator."""
+    buffers (``_offload_staging``, ``_draw_staging``) and the device
+    programs (``_program``, ``_scans``) are dropped. A mesh is dropped
+    too (the JAX package's mixin does the same): a sharded state is
+    gathered whole (every rank pickles) and loads as a single-process
+    estimator."""
 
     _DEVICE_FIELDS = ()
 
@@ -118,7 +119,8 @@ class _PickleStateMixin:
         for name in self._DEVICE_FIELDS:
             if state.get(name) is not None:
                 state[name] = state[name].cpu().numpy()
-        for name in ('_offload_staging', '_draw_staging', '_program'):
+        for name in ('_offload_staging', '_draw_staging', '_program',
+                     '_scans'):
             state.pop(name, None)
         if state.get('mesh') is not None:
             state['mesh'] = None
@@ -399,6 +401,7 @@ class DictFact(CodingMixin, BaseEstimator):
                              f'not on {device}')
         self._cfg = cfg
         self._program = self._draw_staging = None
+        self._scans = {}
         self._n_features = int(n_features)
         self._n_samples = int(n_samples)
         self._dtype = dtype
@@ -522,7 +525,9 @@ class DictFact(CodingMixin, BaseEstimator):
 
     def fit(self, X, y=None):
         """Full factorisation: prepare + n_epochs x (partial_fit + shuffle).
-        The data stays on the device for the whole fit."""
+        The data stays on the device for the whole fit, in its first
+        order: an epoch takes its rows through the shuffles' composed
+        permutation."""
         X = check_array(X, order='C', dtype=[np.float32, np.float64])
         dict_init = X if self.dict_init is None else check_array(
             self.dict_init, dtype=X.dtype.type)
@@ -532,10 +537,13 @@ class DictFact(CodingMixin, BaseEstimator):
         finally:
             self._resident_fit = False
         X_dev = self._ingest_features(self._to_device(X))
+        rows = None
         for _ in range(self.n_epochs):
-            self._partial_fit_device(X_dev, None, ingested=True)
+            self._partial_fit_ingested(
+                X_dev, None, rows=None if rows is None else torch.as_tensor(
+                    rows, device=X_dev.device))
             perm = self.shuffle()
-            X_dev = X_dev[torch.as_tensor(perm, device=X_dev.device)]
+            rows = perm if rows is None else rows[perm]
         return self
 
     def _to_device(self, X):
@@ -598,7 +606,12 @@ class DictFact(CodingMixin, BaseEstimator):
             X_dev = self._ingest_features(X_dev)
         self._partial_fit_ingested(X_dev, sample_indices)
 
-    def _partial_fit_ingested(self, X_dev, sample_indices):
+    def _partial_fit_ingested(self, X_dev, sample_indices, rows=None):
+        """partial_fit on ingested rows: ``X_dev[rows]`` (``rows`` a device
+        index; default: ``X_dev`` as it is). An epoch of a configuration
+        ``_program.capturable`` takes, with no callback, runs its full
+        batches through a ``ScanProgram`` (one graph replay on the card),
+        which gathers the rows into its buffer itself."""
         t0 = time.perf_counter()
         device = X_dev.device
         n = X_dev.shape[0]
@@ -623,6 +636,10 @@ class DictFact(CodingMixin, BaseEstimator):
             # a segment scatters each of its rows back once, so repeated
             # indices step batch by batch, as in the JAX package
             interactive = torch.unique(idx).shape[0] < n
+        program = (n_full > 0 and not interactive and not offload
+                   and _program.capturable(cfg))
+        if rows is not None and not program:
+            X_dev, rows = X_dev[rows], None
         if interactive:
             for batch in gen_batches(n, b):
                 if (self.verbose and getattr(self, 'verbose_iter_', None)
@@ -649,6 +666,12 @@ class DictFact(CodingMixin, BaseEstimator):
                 for s in range(n_seg * seg, n_full):
                     self._step_batch(X_dev[s * b:(s + 1) * b],
                                      idx[s * b:(s + 1) * b], offload)
+            elif program:
+                # the scan program gathers the epoch's rows itself
+                self._scan_program(n_full, b).epoch(
+                    X_dev, idx[:n_full * b],
+                    draw_epoch(self._state, cfg, n_full),
+                    None if rows is None else rows[:n_full * b])
             elif n_full > 0:
                 draws = draw_epoch(self._state, cfg, n_full)
                 self._state = somf_scan(
@@ -656,8 +679,9 @@ class DictFact(CodingMixin, BaseEstimator):
                     self._rows(X_dev[:n_full * b].reshape(n_full, b, -1)),
                     idx[:n_full * b].reshape(n_full, b), cfg, draws)
             if n_full * b < n:
-                self._step_batch(X_dev[n_full * b:], idx[n_full * b:],
-                                 offload)
+                tail = (X_dev[n_full * b:] if rows is None
+                        else X_dev[rows[n_full * b:]])
+                self._step_batch(tail, idx[n_full * b:], offload)
         if device.type == 'cuda':
             torch.cuda.synchronize(device)
         self.time_ += time.perf_counter() - t0
@@ -688,6 +712,25 @@ class DictFact(CodingMixin, BaseEstimator):
             self._program = None        # release the old graph first
             self._program = prog = _program.StepProgram(
                 self._state, self._cfg, self.batch_size)
+        return prog
+
+    def _scan_program(self, n_batches, batch_size):
+        """The scan program of the current state and configuration for
+        epochs of ``n_batches`` batches of ``batch_size``: a cached one
+        (one a shape: a record stream alternates lengths), or a new one
+        where none holds; every cached program is dropped when a leaf was
+        replaced or the configuration changed."""
+        scans = getattr(self, '_scans', None)
+        if scans is None:
+            scans = self._scans = {}
+        key = (n_batches, batch_size)
+        prog = scans.get(key)
+        if prog is None or not prog.holds(self._state, self._cfg,
+                                          n_batches, batch_size):
+            if prog is not None:
+                scans.clear()           # release the old graphs first
+            prog = scans[key] = _program.ScanProgram(
+                self._state, self._cfg, n_batches, batch_size)
         return prog
 
     def _rows(self, X_batches):
@@ -754,7 +797,6 @@ class DictFact(CodingMixin, BaseEstimator):
         seed = self.random_state.randint(MAX_INT)
         perm = np.random.RandomState(seed).permutation(self._n_samples)
         st = self._state
-        self._program = None            # the per-sample leaves move
         perm_dev = torch.as_tensor(perm, device=st.D.device)
         if st.layout is not None and st.layout.split_rows:
             self._shuffle_shards(perm_dev)
@@ -768,11 +810,12 @@ class DictFact(CodingMixin, BaseEstimator):
                 # the offloaded G_avg: permuted in host RAM, kept pinned
                 out = torch.empty(arr.shape, dtype=arr.dtype,
                                   pin_memory=arr.is_pinned())
-                arr = torch.index_select(arr, 0, torch.as_tensor(perm),
-                                         out=out)
+                setattr(st, name, torch.index_select(
+                    arr, 0, torch.as_tensor(perm), out=out))
             else:
-                arr = arr[perm_dev]
-            setattr(st, name, arr)
+                # in place: the leaf keeps its address, and the device
+                # programs that hold it stay valid
+                arr.copy_(torch.index_select(arr, 0, perm_dev))
         self.labels_ = self.labels_[perm]
         return perm
 
@@ -803,6 +846,7 @@ class DictFact(CodingMixin, BaseEstimator):
         G_agg = params.pop('G_agg', None)
         st = getattr(self, '_state', None)
         self._program = None
+        self._scans = {}
         if st is not None and st.layout is not None:
             st = self._state = pmesh.unshard_state(st)
         if G_agg == 'full' and self.G_agg != 'full':

@@ -32,8 +32,11 @@ CUDA tensor it cannot take.
 
 ``ema_accumulate`` runs the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel (a split of SC into scratch, then the
-product) or raises. ``LAUNCHES`` counts calls that launched it, one per
-segment end.
+product) or raises. ``pi`` is a 0-d float32 tensor on B's device, which
+the kernel reads from device memory (one load a block), so that a
+captured segment end (``decomposition/_program.py``'s ``ScanProgram``)
+takes each epoch's value. ``LAUNCHES`` counts calls that launched it,
+one per segment end.
 """
 import ctypes
 import functools
@@ -63,16 +66,17 @@ def supported(k, n, m, dtype):
 
 def ema_accumulate_reference(B, SC, X, pi):
     """Plain PyTorch version: ``B.mul_(pi).addmm_(SC.T, X)``, in place;
-    returns B."""
-    return B.mul_(float(pi)).addmm_(SC.T, X)
+    returns B. ``pi`` a 0-d tensor of B's dtype on its device, or a
+    number: the same products, bitwise."""
+    return B.mul_(pi).addmm_(SC.T, X)
 
 
 @functools.cache
 def _kernel():
     return _build.entry('modl_ema_accumulate_f32',
                         [ctypes.c_void_p] * 3
-                        + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+                        + [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+                        + [ctypes.c_void_p] * 3)
 
 
 @functools.cache
@@ -84,11 +88,13 @@ def _scratch_floats():
 def ema_accumulate(B, SC, X, pi):
     """``B <- pi * B + SC^T @ X`` in place; returns B.
 
-    B (k, n), SC (m, k), X (m, n); ``pi`` a host scalar. CPU tensors run
+    B (k, n), SC (m, k), X (m, n); ``pi`` a 0-d float32 tensor on B's
+    device (the CPU route takes a number too). CPU tensors run
     :func:`ema_accumulate_reference`; CUDA tensors launch the Hopper
-    kernel on the current stream (no synchronisation) and raise on
-    anything it does not take. The kernel's result differs from the plain
-    version's by the 3xTF32 split (~1e-6 of ``max |SC^T X|``)."""
+    kernel on the current stream (no synchronisation; ``pi`` is read on
+    the card) and raise on anything it does not take. The kernel's
+    result differs from the plain version's by the 3xTF32 split (~1e-6
+    of ``max |SC^T X|``)."""
     global LAUNCHES
     if B.device.type == 'cpu':
         return ema_accumulate_reference(B, SC, X, pi)
@@ -105,11 +111,15 @@ def ema_accumulate(B, SC, X, pi):
         if tuple(t.shape) != shapes[name] or not t.is_contiguous():
             raise ValueError(f'ema_accumulate: {name} must be a contiguous '
                              f'{shapes[name]} tensor, got {tuple(t.shape)}')
+    if not (torch.is_tensor(pi) and pi.dim() == 0 and pi.device == B.device
+            and pi.dtype == torch.float32):
+        raise ValueError(f'ema_accumulate: pi must be a 0-d float32 tensor '
+                         f'on {B.device}, got {pi!r}')
     # the split SC^T (hi, lo), on B's device and the current stream
     scratch = torch.empty(_scratch_floats()(k, m), dtype=torch.float32,
                           device=B.device)
     err = _kernel()(B.data_ptr(), SC.data_ptr(), X.data_ptr(), k, n, m,
-                    float(pi), scratch.data_ptr(),
+                    pi.data_ptr(), scratch.data_ptr(),
                     torch.cuda.current_stream(B.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'ema_accumulate: kernel launch failed with '

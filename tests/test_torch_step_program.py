@@ -191,18 +191,27 @@ def _kernel_stand_ins(monkeypatch):
     monkeypatch.setattr(solvers, 'fista_gram', fista_gram)
 
 
-@pytest.mark.parametrize('kw', CONFIGS[:4] + [dict(blocks=True)])
+WINDOWED = dict(subset_sampling='window')
+
+
+@pytest.mark.parametrize('kw', CONFIGS[:4] + [
+    dict(blocks=True), WINDOWED,
+    dict(WINDOWED, rand_size=False, agg='full', code='ridge'),
+    dict(WINDOWED, agg='average'), dict(WINDOWED, blocks=True)])
 def test_body_is_capture_safe(kw, monkeypatch):
-    """Two steps with different draws (subsets, orders, Binomial sizes,
-    weights) dispatch the same ops with the same non-tensor arguments,
-    which is what a graph's baked arguments need; neither reads a device
-    value back, nor makes a tensor of host data (``lift_fresh``: a
-    capture would bake its value, or refuse its copy to the card).
-    ``blocks``: the BCD block driver (two rows a kernel call)."""
+    """Two steps with different draws (subsets or window starts, orders,
+    Binomial sizes, weights) dispatch the same ops with the same
+    non-tensor arguments, which is what a graph's baked arguments need;
+    neither reads a device value back, nor makes a tensor of host data
+    (``lift_fresh``: a capture would bake its value, or refuse its copy
+    to the card). ``blocks``: the BCD block driver (two rows a kernel
+    call)."""
     _kernel_stand_ins(monkeypatch)
     if kw.pop('blocks', False):
         monkeypatch.setattr(bcd, 'MAX_ROWS', 2)
     df, X, cfg = _port_df(**kw)
+    if cfg.windowed:
+        X = df._ingest_features(T(X)).numpy()
     state = clone_state(df._state)
     prog = _program.StepProgram(state, cfg, df.batch_size)
     runs = []
@@ -215,7 +224,7 @@ def test_body_is_capture_safe(kw, monkeypatch):
             prog.run()
         runs[-1] += (rec.ops,)
     (s0, v0, o0, w0, ops0), (s1, v1, o1, w1, ops1) = runs
-    assert not torch.equal(s0, s1) and not torch.equal(w0, w1)
+    assert not torch.equal(T(s0), T(s1)) and not torch.equal(w0, w1)
     assert len(ops0) > 30
     assert ops0 == ops1
     names = {op[0] for op in ops0}
@@ -282,7 +291,9 @@ def _cfg(**changes):
     (dict(code_l1_ratio=0.0, Dx_agg='average'), True),
     (dict(code_l1_ratio=0.0, G_agg='average'), False),
     (dict(code_solver='cd'), False),
-    (dict(windowed=True, n_features=24), False),
+    (dict(windowed=True, n_features=24), True),
+    (dict(windowed=True, n_features=24, rand_size=False, len_max=8), True),
+    (dict(windowed=True, n_features=24, code_solver='cd'), False),
     (dict(average_offload=True), False),
     (dict(mesh=object()), False),
     (dict(use_kernel=False), False),
@@ -351,12 +362,13 @@ def test_program_is_rebuilt_after_invalidation():
     second = df._program
     assert second is not first and second.cfg == df._cfg
     assert second.cfg.len_subset != first.cfg.len_subset
+    # shuffle permutes the per-sample leaves in place: the program holds
     df.shuffle()
-    assert df._program is None
+    assert df._program is second
+    assert second.holds(df._state, df._cfg, df.batch_size)
     df.partial_fit(X[:32])
     third = df._program
-    assert third is not second
-    assert third.addresses != second.addresses
+    assert third is second
     # a leaf replaced behind the estimator's back
     df._state.code = df._state.code.clone()
     assert not third.holds(df._state, df._cfg, df.batch_size)
