@@ -41,7 +41,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    then step_graph: the step program (``decomposition/_program.py``)
    against the eager step at ADHD-70 width as ``partial_fit`` takes it
    (gather subsets) with ridge codes, l1 codes, the 'average'
-   aggregators (FISTA on per-row Grams) and the 'full' ones, and at the
+   aggregators (FISTA, and ridge codes through batched Cholesky and
+   triangular solves, on per-row Grams) and the 'full' ones, and at the
    image fit's step (k=128, 16 x 16 patches, reduction 8, Binomial
    sizes, FISTA, batch 200): 20 steps from one carried state and one
    set of draws, every leaf bitwise equal, the replays under
@@ -151,7 +152,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
    batch ceil(1 / sparsity) = 101, 2 epochs): one BCD launch a batch on
    the masked union-of-supports update, ``use_kernel_``, the resident
    width, epoch ratings/s, test RMSE after each epoch below the bias-only
-   RMSE, and a one-epoch fit with the kernel forced off within 1e-2;
+   RMSE, and a one-epoch fit with the kernel forced off within 1e-2 (run
+   eagerly: the plain BCD reads the order back);
+   then recsys_graph: the fit's batches as programs (a window of 32
+   batches one captured graph, every other batch a one-batch graph of
+   its size) against the same batches run eagerly, from one set-up and
+   the same seed: every leaf bitwise equal after each of 5 epochs, one
+   BCD launch a batch each way, 3 captures (32 x 101, 1 x 101 and the
+   tail's 1 x 87), every replay under ``set_sync_debug_mode('error')``;
+   the epoch's wall seconds each way (medians), the card's ms a window,
+   the host us to draw, stage and replay a window, the idle share of a
+   profiled epoch each way, capture seconds and pool MB, a batch's
+   Cholesky and triangular solves against ``torch.cholesky_solve``;
+   then a 2-epoch ``fit`` through the programs, bitwise equal to the
+   eager epochs' state and its refit codes, each window one replay;
 11. image: ``ImageDictFact.fit`` at ``exps/exp_decompose_images.py``'s
    configuration (k=128, 16 x 16 patches, reduction 8, batch 200) on a
    768 x 1,024 grey synthetic image (the face's size; ~760k patches,
@@ -200,7 +214,8 @@ with four cards, its legs over NCCL across them), then the device line.
 ``python3 chip_smoke.py --step-graph-only`` runs phases 1, 2 and
 step_graph alone, then the device line; ``--scan-graph-only`` runs
 phases 1, 2, the EMA-GEMM kernel at the fits' three segment-end shapes
-and scan_graph, then the device line.
+and scan_graph, then the device line; ``--recsys-graph-only`` runs
+phases 1, 2 and recsys_graph on phase 10's data, then the device line.
 
 Every phase line ends with ``at=``, its seconds since the start. On
 its way out, passed or failed, the script stops every process it
@@ -403,6 +418,9 @@ SCAN_EPOCHS, SCAN_TIMED, SCAN_FIT_EPOCHS = 3, 5, 3
 # kernel's ~1 ms over 6 segment ends sits inside one fit's spread (~32
 # ms +- 1.5); the HCP-1024 leg's ~15 ms stands out in one round
 AB_ROUNDS_ADHD = 5
+# phase recsys_graph: epochs each way from one set-up (the first
+# RECSYS_EPOCHS of them are the fit), and the later ones timed
+RECSYS_GRAPH_EPOCHS = 5
 
 
 # the run's start: every phase line ends with its seconds since (``at``)
@@ -580,17 +598,19 @@ def plain_fista():
 
 @contextlib.contextmanager
 def eager_steps():
-    """No configuration runs as a step program (``_program.capturable``
-    says no): for the kernel-off refits, whose plain versions read values
-    back (the BCD's atom order, FISTA's count), which a captured step
-    cannot; restored after."""
+    """No configuration runs as a program (``_program.capturable`` and
+    ``capturable_recsys`` say no): for the kernel-off refits, whose plain
+    versions read values back (the BCD's atom order, FISTA's count),
+    which a captured step cannot, and for the eager side of phase
+    recsys_graph; restored after."""
     from modl_tpu_torch.decomposition import _program
-    saved = _program.capturable
+    saved = _program.capturable, _program.capturable_recsys
     _program.capturable = lambda cfg: False
+    _program.capturable_recsys = lambda cfg, resident: False
     try:
         yield
     finally:
-        _program.capturable = saved
+        _program.capturable, _program.capturable_recsys = saved
 
 
 @contextlib.contextmanager
@@ -1226,13 +1246,15 @@ def step_graph_phase(legs):
 def adhd_graph_legs(X):
     """The ADHD-70 configuration as ``partial_fit`` takes it (gather
     subsets) with ridge codes, l1 codes (FISTA), the 'average'
-    aggregators with l1 codes (FISTA on per-row Grams; ridge there is not
-    capturable) and the 'full' ones with ridge codes."""
+    aggregators with l1 codes (FISTA on per-row Grams) and with ridge
+    codes (batched Cholesky and triangular solves on per-row Grams,
+    ``ops.solvers.spd_solve``), and the 'full' ones with ridge codes."""
     kw = {key: v for key, v in ADHD.items() if key != 'subset_sampling'}
+    average = dict(kw, Dx_agg='average', G_agg='average')
     return [('adhd70_ridge', kw, X),
             ('adhd70_l1', dict(kw, code_l1_ratio=1.0), X),
-            ('adhd70_average', dict(kw, Dx_agg='average', G_agg='average',
-                                    code_l1_ratio=1.0), X),
+            ('adhd70_average', dict(average, code_l1_ratio=1.0), X),
+            ('adhd70_average_ridge', average, X),
             ('adhd70_full', dict(kw, Dx_agg='full', G_agg='full'), X)]
 
 
@@ -2190,6 +2212,272 @@ def recsys_ml10m(X_tr, X_te):
     return launches
 
 
+@contextlib.contextmanager
+def recsys_replays_without_host_reads():
+    """Every replay of a ``RecsysProgram`` (a run after its capture) under
+    ``torch.cuda.set_sync_debug_mode('error')``: a replay that waits for
+    the card raises. Yields the list of the replays' counts."""
+    import torch
+    from modl_tpu_torch.decomposition import _program
+    saved = _program.RecsysProgram.run
+    replays = [0]
+
+    def guarded(self):
+        if self.graph is None:
+            return saved(self)
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return saved(self)
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+            replays[0] += 1
+
+    _program.RecsysProgram.run = guarded
+    try:
+        yield replays
+    finally:
+        _program.RecsysProgram.run = saved
+
+
+def recsys_graph_phase(X):
+    """Phase recsys_graph: ``RecsysDictFact``'s batches as programs
+    (``_program.RecsysProgram``: a window of 32 batches one graph, every
+    other batch a one-batch graph of its size) at phase 10's ML-10M
+    configuration, against the same batches run eagerly. From one fit's
+    set-up (``_start``, the same seed each way), RECSYS_GRAPH_EPOCHS
+    epochs of ``recsys_epoch`` each way: every leaf (D, C, B, comp_norm,
+    feature_n_iter, the batches' codes) and ``n_iter`` bitwise equal
+    after each epoch, one BCD launch a batch each way, the programs'
+    captures and runs, every replay under ``set_sync_debug_mode
+    ('error')``; the first RECSYS_EPOCHS epochs are the fit with the
+    programs off. The wall seconds of an epoch each way (medians over the
+    epochs after the fit's), the card's ms a window (CUDA events over
+    replays), the host us to draw, stage and replay a window (the card
+    idle), the idle share of one profiled epoch each way, the captures'
+    seconds and pools' MB, and a batch's Cholesky, triangular solves and
+    the batched ``torch.cholesky_solve`` they replace, in ms. Then
+    ``RecsysDictFact(n_epochs=RECSYS_EPOCHS).fit``, which runs through the
+    programs: its dictionary, C and B bitwise equal to the eager epochs',
+    its codes to their refit, each window one replay. Returns the fit's
+    BCD launches."""
+    import statistics
+
+    import torch
+    from modl_tpu_torch import RecsysDictFact
+    from modl_tpu_torch.benchmarks.workloads import RECSYS, RECSYS_EPOCHS
+    from modl_tpu_torch.decomposition import _program, recsys
+    from modl_tpu_torch.decomposition._step import DrawStaging
+    from modl_tpu_torch.ops import bcd
+    from modl_tpu_torch.utils.profiling import device_busy_s, device_trace
+    leg_t0 = time.perf_counter()
+    parts_s = {}
+    ways = {}
+    for way in ('eager', 'graph'):
+        est = RecsysDictFact(**RECSYS, device='cuda')
+        state, cfg, csr, resident, b = est._start(X)
+        ways[way] = dict(est=est, state=state, cfg=cfg, csr=csr,
+                         resident=resident, b=b,
+                         programs=None if way == 'eager' else {},
+                         staging=DrawStaging('cuda'))
+    g = ways['graph']
+    parts_s['setup'] = time.perf_counter() - leg_t0
+    b, n_samples = g['b'], X.shape[0]
+    n_batches = -(-n_samples // b)
+    n_windows = (n_samples // b) // recsys.WINDOW
+    singles = n_samples // b - n_windows * recsys.WINDOW
+    tail = n_samples % b
+    if not _program.capturable_recsys(g['cfg'], g['resident'] is not None):
+        raise RuntimeError('recsys_graph: the fit does not run as programs')
+
+    def epoch(way):
+        w = ways[way]
+        recsys.recsys_epoch(w['state'], w['cfg'], w['resident'],
+                            w['est'].random_state, w['b'], w['programs'],
+                            w['staging'])
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    names = ('D', 'C', 'B', 'comp_norm', 'feature_n_iter', 'code')
+    diffs, counts, walls = {}, set(), {'eager': [], 'graph': []}
+    captures0 = _program.CAPTURES
+    fit_leaves = None
+    with recsys_replays_without_host_reads() as replays:
+        for e in range(RECSYS_GRAPH_EPOCHS):
+            for way in ('eager', 'graph'):
+                bcd.LAUNCHES = 0
+                walls[way].append(wall(lambda: epoch(way)))
+                counts.add((way, bcd.LAUNCHES))
+            ge, gg = ways['eager']['state'], ways['graph']['state']
+            for name in names:
+                a, r = getattr(gg, name), getattr(ge, name)
+                d = float((a.double() - r.double()).abs().max())
+                diffs[name] = max(diffs.get(name, 0.0), d)
+            if ge.n_iter != gg.n_iter:
+                diffs['n_iter'] = abs(ge.n_iter - gg.n_iter)
+            if e == RECSYS_EPOCHS - 1:
+                # what the fit with the programs off ends with
+                fit_leaves = {name: getattr(ge, name).clone()
+                              for name in ('D', 'C', 'B')}
+                w = ways['eager']
+                fit_leaves['code'] = w['est']._refit_device(
+                    ge.D, w['csr'], w['resident'])
+                fit_n_iter = ge.n_iter
+    captures = _program.CAPTURES - captures0
+    parts_s['epochs'] = sum(walls['eager']) + sum(walls['graph'])
+    t_timed = time.perf_counter()
+    bitwise = all(d == 0 for d in diffs.values())
+    programs = g['programs']
+    keys = sorted(programs)
+    want_keys = sorted({(recsys.WINDOW, b), (1, b)}
+                       | ({(1, tail)} if tail else set()))
+    want_runs = {(recsys.WINDOW, b): n_windows, (1, b): singles,
+                 (1, tail): 1}
+    runs_ok = all(programs[key].runs == RECSYS_GRAPH_EPOCHS * want_runs[key]
+                  for key in keys)
+    eager_counts = {c for way, c in counts if way == 'eager'}
+    graph_counts = {c for way, c in counts if way == 'graph'}
+
+    # timings: the window program's replays on the card and on the host
+    prog = programs[(recsys.WINDOW, b)]
+    window_ms = cuda_ms(prog.run, 5)
+    st, cfg, rs = g['state'], g['cfg'], g['est'].random_state
+    k = st.D.shape[0]
+
+    perm = rs.permutation(n_samples)     # an epoch's, drawn once an epoch
+
+    def host_parts():
+        """The host's seconds of a window's draws (its rows from the
+        epoch's permutation, its atom orders), staging and replay."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows_w = np.stack([perm[t * b:(t + 1) * b]
+                           for t in range(recsys.WINDOW)])
+        orders_w = np.stack([rs.permutation(k)
+                             for _ in range(recsys.WINDOW)])
+        t1 = time.perf_counter()
+        prog.stage([(r, o, recsys.batch_scalars(st, cfg, b))
+                    for r, o in zip(rows_w, orders_w)])
+        t2 = time.perf_counter()
+        prog.run()
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        return t1 - t0, t2 - t1, t3 - t2
+
+    draw_us, stage_us, replay_us = (
+        1e6 * statistics.median(p)
+        for p in zip(*[host_parts() for _ in range(5)]))
+    idle = {}
+    for way in ('eager', 'graph'):
+        with device_trace(os.path.join(REPO, 'build', 'chip_smoke_trace',
+                                       f'recsys_{way}')) as prof:
+            seconds = wall(lambda: epoch(way))
+        busy = device_busy_s(prof)
+        idle[way] = (seconds, busy, 1 - busy / seconds)
+    # one batch's solves at the fit's shape, on a real batch's Grams
+    idx, val, lens = recsys._batch_rows(g['resident'],
+                                        torch.arange(b, device='cuda'), None)
+    Dg = torch.cat([st.D.T, st.D.new_zeros((1, k))])[idx.long()]
+    G = (torch.einsum('bpk,bpq->bkq', Dg, Dg)
+         + torch.eye(k, device='cuda'))
+    rhs = torch.einsum('bpk,bp->bk', Dg, val)
+    L = torch.linalg.cholesky_ex(G).L
+    y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+    solve_ms = dict(
+        cholesky_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(G), 20),
+        trsm_lower_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+            L, rhs[..., None], upper=False), 20),
+        trsm_upper_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+            L.mT, y, upper=True), 20),
+        cholesky_solve_ms=cuda_ms(lambda: torch.cholesky_solve(
+            rhs[..., None], L), 20))
+    pools = {key: graph_pool_mb(programs[key].graph) for key in keys}
+    timed = dict(eager_epoch_s=statistics.median(
+                     walls['eager'][RECSYS_EPOCHS:]),
+                 graph_epoch_s=statistics.median(
+                     walls['graph'][RECSYS_EPOCHS:]))
+    del ways, g, st, prog, Dg, G, L, y, idx, val, lens
+    parts_s['timed'] = time.perf_counter() - t_timed
+
+    # the fit through the programs against the eager epochs' state
+    t_fit = time.perf_counter()
+    captures0, batches0 = _program.CAPTURES, recsys.BATCHES
+    bcd.LAUNCHES = 0
+    with recsys_replays_without_host_reads() as fit_replays:
+        fit = RecsysDictFact(**RECSYS, n_epochs=RECSYS_EPOCHS,
+                             device='cuda').fit(X)
+    torch.cuda.synchronize()
+    fit_launches, fit_captures = bcd.LAUNCHES, _program.CAPTURES - captures0
+    fit_batches = recsys.BATCHES - batches0
+    fit_diffs = {name: float((getattr(fit, f'_{name}').double()
+                              - fit_leaves[name].double()).abs().max())
+                 for name in ('D', 'C', 'B', 'code')}
+    fit_runs = {key: p.runs for key, p in fit._programs.items()}
+    parts_s['fit'] = time.perf_counter() - t_fit
+    fit_ok = (all(d == 0 for d in fit_diffs.values())
+              and fit.n_iter_ == fit_n_iter
+              and fit_launches == fit_batches == RECSYS_EPOCHS * n_batches
+              and fit_captures == len(want_keys)
+              and fit_runs == {key: RECSYS_EPOCHS * want_runs[key]
+                               for key in want_keys})
+    phase('recsys_graph', rows=n_samples, batch=b, batches=n_batches,
+          windows=n_windows, singles=singles, tail=tail,
+          epochs=RECSYS_GRAPH_EPOCHS, bitwise=bitwise,
+          max_abs_diff=','.join(f'{k_}:{v:.3e}' for k_, v in diffs.items()),
+          launches_eager=','.join(map(str, sorted(eager_counts))),
+          launches_graph=','.join(map(str, sorted(graph_counts))),
+          captures=captures,
+          programs=','.join(f'{t}x{b_}' for t, b_ in keys),
+          runs=','.join(str(programs[key].runs) for key in keys),
+          replays_guarded=replays[0], host_syncs_in_replays=0,
+          eager_epoch_s=f'{timed["eager_epoch_s"]:.4f}',
+          graph_epoch_s=f'{timed["graph_epoch_s"]:.4f}',
+          eager_epochs_s=','.join(f'{t:.4f}' for t in walls['eager']),
+          graph_epochs_s=','.join(f'{t:.4f}' for t in walls['graph']),
+          window_card_ms=f'{window_ms:.4f}',
+          draw_us=f'{draw_us:.1f}', stage_us=f'{stage_us:.1f}',
+          replay_us=f'{replay_us:.1f}',
+          **{f'{way}_profiled_s': f'{v[0]:.4f}' for way, v in idle.items()},
+          **{f'{way}_busy_s': f'{v[1]:.4f}' for way, v in idle.items()},
+          **{f'{way}_idle_share': f'{v[2]:.4f}' for way, v in idle.items()},
+          capture_s=','.join(f'{programs[key].capture_s:.4f}'
+                             for key in keys),
+          pool_MB=','.join(f'{pools[key]:.1f}' for key in keys),
+          **{key: f'{v:.4f}' for key, v in solve_ms.items()},
+          fit_bitwise=all(d == 0 for d in fit_diffs.values()),
+          fit_max_abs_diff=','.join(f'{k_}:{v:.3e}'
+                                    for k_, v in fit_diffs.items()),
+          fit_launches=fit_launches, fit_batches=fit_batches,
+          fit_captures=fit_captures, fit_replays_guarded=fit_replays[0],
+          fit_runs=','.join(str(fit_runs[key]) for key in sorted(fit_runs)),
+          fit_epoch_s=f'{fit.time_ / RECSYS_EPOCHS:.4f}',
+          **{f'{key}_s': f'{v:.2f}' for key, v in parts_s.items()},
+          leg_s=f'{time.perf_counter() - leg_t0:.2f}')
+    if not bitwise:
+        raise RuntimeError(f'recsys_graph: the programs\' epochs differ '
+                           f'from the eager ones: {diffs}')
+    if eager_counts != {n_batches} or graph_counts != {n_batches}:
+        raise RuntimeError(f'recsys_graph: BCD launches an epoch '
+                           f'{eager_counts} eager and {graph_counts} '
+                           f'through the programs, expected {n_batches}')
+    if captures != len(want_keys) or keys != want_keys or not runs_ok:
+        raise RuntimeError(f'recsys_graph: {captures} captures of '
+                           f'{keys} (runs '
+                           f'{[programs[key].runs for key in keys]}), '
+                           f'expected {want_keys}')
+    if not fit_ok:
+        raise RuntimeError(f'recsys_graph: the fit through the programs '
+                           f'differs from the eager epochs ({fit_diffs}, '
+                           f'n_iter {fit.n_iter_}) or ran {fit_launches} '
+                           f'BCD launches and {fit_batches} batches with '
+                           f'{fit_captures} captures, runs {fit_runs}')
+    return fit_launches
+
+
 class ProfiledSteps:
     """An ImageDictFact callback (called before each step) that profiles
     the steps ``first`` to ``last - 1`` of a fit through
@@ -2367,45 +2655,44 @@ def environ(**values):
 @contextlib.contextmanager
 def counting_steps():
     """Counts the learner steps the block runs: ceil(n / batch) a
-    ``DictFact._partial_fit_ingested`` call, one a recsys batch
-    (``_recsys_batch_step``). Yields the dict that holds the count."""
-    from modl_tpu_torch.decomposition import dict_fact, recsys
+    ``DictFact._partial_fit_ingested`` call; recsys batches are counted by
+    ``recsys.BATCHES`` (each batch that ran, eagerly or in a program's
+    replay), which ``driven`` adds. Yields the dict that holds the
+    count."""
+    from modl_tpu_torch.decomposition import dict_fact
     count = {'steps': 0}
     ingested = dict_fact.DictFact._partial_fit_ingested
-    batch_step = recsys._recsys_batch_step
 
     def counted_ingested(self, X_dev, sample_indices, rows=None):
         n = X_dev.shape[0] if rows is None else rows.shape[0]
         count['steps'] += -(-n // min(self.batch_size, n)) if n else 0
         return ingested(self, X_dev, sample_indices, rows=rows)
 
-    def counted_batch_step(*args, **kwargs):
-        count['steps'] += 1
-        return batch_step(*args, **kwargs)
-
     dict_fact.DictFact._partial_fit_ingested = counted_ingested
-    recsys._recsys_batch_step = counted_batch_step
     try:
         yield count
     finally:
         dict_fact.DictFact._partial_fit_ingested = ingested
-        recsys._recsys_batch_step = batch_step
 
 
 def driven(fn, count, **kwargs):
     """``fn(**kwargs)`` with its printing kept: (result, printed text,
     seconds, BCD launches, EMA-GEMM launches, steps, FISTA launches),
-    the counts set to 0 just before."""
+    the counts set to 0 just before; the steps are ``count``'s and the
+    recsys batches."""
     import torch
+    from modl_tpu_torch.decomposition import recsys
     from modl_tpu_torch.ops import bcd, ema_gemm, fista
     out = io.StringIO()
     bcd.LAUNCHES = ema_gemm.LAUNCHES = fista.LAUNCHES = count['steps'] = 0
+    recsys.BATCHES = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         result = fn(**kwargs)
     torch.cuda.synchronize()
     return (result, out.getvalue(), time.perf_counter() - t0,
-            bcd.LAUNCHES, ema_gemm.LAUNCHES, count['steps'], fista.LAUNCHES)
+            bcd.LAUNCHES, ema_gemm.LAUNCHES,
+            count['steps'] + recsys.BATCHES, fista.LAUNCHES)
 
 
 def final_score(name, result, text):
@@ -3196,6 +3483,14 @@ def main():
         return mesh_only_main(name)
     if sys.argv[1:] == ['--scan-graph-only']:
         return scan_graph_only_main(name, smi)
+    if sys.argv[1:] == ['--recsys-graph-only']:
+        from modl_tpu_torch.benchmarks.workloads import recsys_data
+        recsys_graph_phase(recsys_data()[0])
+        print(smi, flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': name,
+            'count': torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:] == ['--step-graph-only']:
         X, _ = adhd_data()
         legs = adhd_graph_legs(X) + image_graph_leg()
@@ -3376,6 +3671,7 @@ def main():
 
     # 10-11. the recsys and image fits
     recsys_launches = recsys_ml10m(X_tr, X_te)
+    recsys_graph_launches = recsys_graph_phase(X_tr)
     del X_tr, X_te
     image_launches, image_fista = image_phase()
 
@@ -3410,7 +3706,9 @@ def main():
         'library_ms': None, 'ms_hcp': hcp_ms, 'plain_ms_hcp': hcp_plain_ms,
         'bound_ms_hcp': hcp_bound_ms, 'launches_recsys': recsys_launches,
         'ms_recsys': recsys_case[1], 'plain_ms_recsys': recsys_case[2],
-        'bound_ms_recsys': recsys_case[3], 'launches_image': image_launches,
+        'bound_ms_recsys': recsys_case[3],
+        'launches_recsys_graph': recsys_graph_launches,
+        'launches_image': image_launches,
         'ms_image': image_cases[0][1], 'plain_ms_image': image_cases[0][2],
         'bound_ms_image': image_cases[0][3],
         'launches_dtype_policy': dtype_launches,

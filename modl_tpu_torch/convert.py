@@ -84,8 +84,8 @@ def recsys_state_from_jax(state_np, device='cuda', dtype=None):
     Returns a dict of the same keys: float tensors on ``device`` (the
     card unless the caller asks for the CPU) in ``dtype`` (default: the
     dictionary's), ``feature_n_iter`` as int32
-    and ``n_iter`` as a host int, the arguments of
-    ``decomposition.recsys._recsys_batch_step``."""
+    and ``n_iter`` as a host int: the fields of
+    ``decomposition.recsys.RecsysState``."""
     device = _resolve_device(device)
     if dtype is None:
         dtype = getattr(torch, np.asarray(state_np['D']).dtype.name)

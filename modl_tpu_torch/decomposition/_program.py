@@ -32,26 +32,44 @@ warm-up ``torch.cuda.graphs`` asks for) and is then captured; the
 capture itself launches nothing. On the CPU, which only the tests ask
 for, ``run`` calls the same body on the same buffers.
 
+A :class:`RecsysProgram` runs T batches of b rows of a
+``RecsysDictFact`` fit over its resident packed rows, the counterpart
+of the JAX package's ``_recsys_window_resident`` (T = 32,
+``modl_tpu/decomposition/recsys.py:606``) and
+``_recsys_batch_resident`` (T = 1, ``:623``): its buffer holds each
+batch's rows (b,) int64, atom order (k,) int32 and scalars in the
+state's dtype, staged in one non-blocking copy, and its graph holds,
+for each batch, the row gathers, the masked ridge codes, the code write,
+the B and C EMAs, the union mask and one BCD launch (the body is the
+recsys module's, handed in by the estimator).
+
 Which configurations run as programs is decided from the configuration
-alone by :func:`capturable`; the others step eagerly through
-``somf_step`` and ``somf_scan``, each for a reason:
+alone by :func:`capturable` (SOMF) and :func:`capturable_recsys`; the
+others step eagerly through ``somf_step`` and ``somf_scan`` (or the
+recsys module's eager batches), each for a reason:
 
 - ``code_solver='cd'``: it reads a convergence flag every sweep;
-- ridge codes on per-row Grams (``G_agg='average'``): the batched
-  Cholesky solve goes to MAGMA, whose ``spotrs_batched`` allocates
-  device memory during the call, which a capture refuses;
-- a mesh: ``agree`` reads a count at each check, over gloo or NCCL;
+- a mesh: ``agree`` reads a count at each check, over gloo or NCCL (a
+  recsys mesh fit reassembles its batch rows by all-reduces);
+- recsys rows packed a batch at a time (not resident): each batch has
+  its own width, read from the host's row lengths;
 - ``average_offload``: segments gather and scatter in host RAM;
 - the plain BCD path (``use_kernel`` off: the CPU, or the kernel's
   plain version on the card), which reads the atom order back.
 
+Ridge codes on per-row Grams (``G_agg='average'``, and every recsys
+batch) solve through ``ops.solvers.spd_solve``, whose batched Cholesky
+factorisation and triangular solves a capture takes (the batched
+``torch.cholesky_solve`` does not: MAGMA's ``potrs_batched`` allocates
+device memory during the call).
+
 A capture that fails raises; nothing falls back to the eager step or
 scan. A program is tied to one state object, configuration, shape and
 the addresses of the state's leaves (``holds``); the estimator builds a
-new one when any of them changes. The kernels' launch counters count
-launches that ran: a capture records what it would launch and each
-replay adds that (``LAUNCHES`` of ``ops.bcd``, ``ops.fista`` and
-``ops.ema_gemm``).
+new one when any of them changes (a recsys fit builds its programs
+anew each ``fit``). The kernels' launch counters count launches that
+ran: a capture records what it would launch and each replay adds that
+(``LAUNCHES`` of ``ops.bcd``, ``ops.fista`` and ``ops.ema_gemm``).
 """
 import time
 
@@ -61,8 +79,8 @@ from ..ops import bcd, ema_gemm, fista
 from ._step import (DrawLayout, DrawStaging, _scan_body, _step_body,
                     draw_step, epoch_scalars, step_scalars)
 
-__all__ = ["StepProgram", "ScanProgram", "capturable", "CAPTURES", "STEPS",
-           "EPOCHS"]
+__all__ = ["StepProgram", "ScanProgram", "RecsysProgram", "capturable",
+           "capturable_recsys", "CAPTURES", "STEPS", "EPOCHS"]
 
 # graphs captured, steps run by step programs and epochs run by scan
 # programs (read by chip_smoke.py)
@@ -81,68 +99,55 @@ COUNTED = (bcd, fista, ema_gemm)
 def capturable(cfg):
     """Whether steps and epochs of ``cfg`` run as programs: gather or
     windowed subsets (with or without ``rand_size``), the
-    ``variational`` or ``sgd`` optimizer, any aggregators, FISTA codes,
-    or ridge codes on a shared Gram (``G_agg`` not ``'average'``), the
-    kernels on (``use_kernel``: CUDA, float32), no mesh, no
-    ``average_offload``."""
-    ridge = cfg.code_l1_ratio == 0.0
+    ``variational`` or ``sgd`` optimizer, any aggregators, ridge or
+    FISTA codes, the kernels on (``use_kernel``: CUDA, float32), no
+    mesh, no ``average_offload``."""
     return (cfg.use_kernel
             and cfg.optimizer in ('variational', 'sgd')
             and cfg.Dx_agg in AGGREGATORS and cfg.G_agg in AGGREGATORS
-            and (cfg.G_agg != 'average' if ridge
-                 else cfg.code_solver == 'fista')
+            and (cfg.code_l1_ratio == 0.0 or cfg.code_solver == 'fista')
             and cfg.mesh is None and not cfg.average_offload)
 
 
-def _addresses(state):
-    return tuple(None if getattr(state, name) is None
-                 else getattr(state, name).data_ptr() for name in LEAVES)
+def capturable_recsys(cfg, resident):
+    """Whether a ``RecsysDictFact`` fit of ``cfg`` (a
+    ``recsys.RecsysConfig``) runs its batches as programs: the BCD
+    kernel on (``use_kernel``: CUDA, float32; its plain version reads the
+    atom order back), rows ``resident`` (packed once; packed a batch at
+    a time, each batch has its own width), no mesh (a batch's rows are
+    reassembled by all-reduces over ``dp``)."""
+    return bool(cfg.use_kernel and resident and cfg.mesh is None)
+
+
+def _addresses(leaves):
+    return tuple(None if t is None else t.data_ptr() for t in leaves)
 
 
 class _Program:
-    """What both programs share: the state, configuration and leaf
-    addresses they are tied to, the draws' layout and staging ring, and
-    the run (the body on the CPU; capture, then replays, on CUDA).
+    """What every program shares: the leaves it reads and writes (held,
+    so that no new tensor takes their addresses), their addresses, a
+    staging ring for the draws, and the run of ``body`` (a callable of no
+    argument): the body on the CPU; on CUDA its capture, then replays.
 
     ``capture_s`` holds the seconds the capture took (``None`` before
     it), ``graph`` the ``torch.cuda.CUDAGraph`` once captured, and
     ``launches`` the ``(counter module, launches)`` a replay makes."""
 
-    def __init__(self, state, cfg):
-        if not capturable(cfg):
-            raise ValueError('this configuration does not run as a device '
-                             'program (see _program.capturable)')
-        self.device = state.D.device
-        self.state, self.cfg = state, cfg
-        # the leaves are held, so no new tensor takes their addresses
-        self.leaves = [getattr(state, name) for name in LEAVES]
-        self.addresses = _addresses(state)
-        self.layout = DrawLayout.of(cfg, state.D.dtype)
-        self.staging = DrawStaging(self.device)
+    def __init__(self, device, leaves, body):
+        self.device = device
+        self.leaves = list(leaves)
+        self.addresses = _addresses(self.leaves)
+        self.body = body
+        self.staging = DrawStaging(device)
         self.graph = None
         self.launches = None
         self.capture_s = None
-
-    def _buffers(self, shape, n_steps):
-        """Static buffers: rows (``shape`` + (n_stored,)), sample indices
-        (``shape``) and the draws of ``n_steps`` steps (uint8, a
-        ``DrawLayout.nbytes`` row each)."""
-        D = self.state.D
-        self.X = torch.zeros(shape + (D.shape[1],), dtype=D.dtype,
-                             device=self.device)
-        self.idx = torch.zeros(shape, dtype=torch.int64, device=self.device)
-        self.draws = torch.zeros(n_steps * self.layout.nbytes,
-                                 dtype=torch.uint8, device=self.device)
-
-    def _holds(self, state, cfg):
-        return (state is self.state and cfg == self.cfg
-                and _addresses(state) == self.addresses)
 
     def _run(self):
         """Replay the graph (capture it at the first run, after running
         the body as the warm-up) on CUDA; the body on the CPU."""
         if self.device.type != 'cuda':
-            self._body()
+            self.body()
         elif self.graph is None:
             self._capture()
         else:
@@ -158,13 +163,13 @@ class _Program:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self._body()
+            self.body()
             t0 = time.perf_counter()
             before = [module.LAUNCHES for module in COUNTED]
             graph = torch.cuda.CUDAGraph()
             graph.capture_begin(capture_error_mode='thread_local')
             try:
-                self._body()
+                self.body()
             finally:
                 graph.capture_end()
             self.launches = []
@@ -177,7 +182,39 @@ class _Program:
         CAPTURES += 1
 
 
-class StepProgram(_Program):
+class _SomfProgram(_Program):
+    """What the SOMF programs share: the state and configuration they
+    are tied to, the draws' layout, and the static buffers of rows,
+    sample indices and draws."""
+
+    def __init__(self, state, cfg):
+        if not capturable(cfg):
+            raise ValueError('this configuration does not run as a device '
+                             'program (see _program.capturable)')
+        super().__init__(state.D.device,
+                         [getattr(state, name) for name in LEAVES],
+                         self._body)
+        self.state, self.cfg = state, cfg
+        self.layout = DrawLayout.of(cfg, state.D.dtype)
+
+    def _buffers(self, shape, n_steps):
+        """Static buffers: rows (``shape`` + (n_stored,)), sample indices
+        (``shape``) and the draws of ``n_steps`` steps (uint8, a
+        ``DrawLayout.nbytes`` row each)."""
+        D = self.state.D
+        self.X = torch.zeros(shape + (D.shape[1],), dtype=D.dtype,
+                             device=self.device)
+        self.idx = torch.zeros(shape, dtype=torch.int64, device=self.device)
+        self.draws = torch.zeros(n_steps * self.layout.nbytes,
+                                 dtype=torch.uint8, device=self.device)
+
+    def _holds(self, state, cfg):
+        return (state is self.state and cfg == self.cfg
+                and _addresses([getattr(state, name) for name in LEAVES])
+                == self.addresses)
+
+
+class StepProgram(_SomfProgram):
     """The step of ``cfg`` at batch size ``batch_size`` on ``state``, as
     one captured graph on CUDA (see the module docstring)."""
 
@@ -224,7 +261,7 @@ class StepProgram(_Program):
                    self.scalars, self.cfg, self.cfg.rand_size)
 
 
-class ScanProgram(_Program):
+class ScanProgram(_SomfProgram):
     """The fused epoch of ``cfg`` over ``n_batches`` batches of
     ``batch_size`` rows on ``state``, as one captured graph on CUDA (see
     the module docstring): ``_step.somf_scan`` with its inputs in static
@@ -280,3 +317,38 @@ class ScanProgram(_Program):
 
     def _body(self):
         _scan_body(self.state, self.X, self.idx, self.cfg, self.steps)
+
+
+class RecsysProgram(_Program):
+    """``n_batches`` batches of a recsys fit as one captured graph on CUDA
+    (see the module docstring). ``leaves`` are the tensors the batches
+    read and write (the state's and the resident packed rows), ``batch``
+    the body of one batch, called with its ``(rows, order, scalars)``
+    views of the staged draws, and ``layout`` (a ``DrawLayout`` of b
+    rows) where those lie in a batch's bytes. ``runs`` counts the
+    program's runs (replays, and the run that captured it)."""
+
+    def __init__(self, leaves, batch, layout, n_batches):
+        super().__init__(leaves[0].device, leaves, self._body)
+        self.batch, self.layout = batch, layout
+        self.n_batches = n_batches
+        nb = layout.nbytes
+        self.draws = torch.zeros(n_batches * nb, dtype=torch.uint8,
+                                 device=self.device)
+        self.batches = [layout.views(self.draws[t * nb:(t + 1) * nb])
+                        for t in range(n_batches)]
+        self.runs = 0
+
+    def stage(self, steps):
+        """Put the batches' host draws ``(rows, order, scalars)`` (numpy)
+        in the static buffer in one non-blocking copy through the ring."""
+        self.staging.send_steps(self.layout, steps, out=self.draws)
+
+    def run(self):
+        """Run the staged batches (:meth:`_Program._run`)."""
+        self._run()
+        self.runs += 1
+
+    def _body(self):
+        for rows, order, scalars in self.batches:
+            self.batch(rows, order, scalars)

@@ -723,18 +723,20 @@ def somf_step_inner(state: SomfState, X, sample_indices, subset, order,
 
 class DrawLayout:
     """Where a step's draws lie in one byte buffer: the subset's
-    ``width`` int64 indices (one for a ``window`` start, 0 for none),
-    the ``N_SCALARS`` scalars in ``dtype`` and the (k,) int32 order,
+    ``width`` int64 indices (one for a ``window`` start, 0 for none;
+    the batch's rows for a recsys batch), the ``n_scalars`` scalars in
+    ``dtype`` (``N_SCALARS`` for a SOMF step) and the (k,) int32 order,
     each at an offset its type aligns to; ``nbytes`` is a multiple of 8,
     so that an epoch's steps lie one after another (step t at ``t *
     nbytes``)."""
 
-    def __init__(self, width, k, dtype, window=False):
+    def __init__(self, width, k, dtype, window=False, n_scalars=N_SCALARS):
         self.width, self.dtype, self.window = width, dtype, window
+        self.n_scalars = n_scalars
         self.itemsize = torch.empty((), dtype=dtype).element_size()
         self.scalars_at = 8 * width
         self.order_at = (self.scalars_at
-                         + -(-N_SCALARS * self.itemsize // 8) * 8)
+                         + -(-n_scalars * self.itemsize // 8) * 8)
         self.order_end = self.order_at + 4 * k
         self.nbytes = -(-self.order_end // 8) * 8
 
@@ -746,14 +748,16 @@ class DrawLayout:
                    cfg.n_components, dtype)
 
     def fill(self, buf, subset, order, scalars):
-        """Write a step's draws into ``buf`` (a uint8 numpy array)."""
+        """Write a step's draws into ``buf`` (a uint8 numpy array); the
+        subset and order are CPU tensors or numpy arrays."""
         if self.window:
             buf[:8].view(np.int64)[0] = subset
         elif self.width:
-            buf[:self.scalars_at].view(np.int64)[:] = subset.numpy()
+            buf[:self.scalars_at].view(np.int64)[:] = np.asarray(subset)
         buf[self.scalars_at:self.order_at].view(scalars.dtype)[
-            :N_SCALARS] = scalars
-        buf[self.order_at:self.order_end].view(np.int32)[:] = order.numpy()
+            :self.n_scalars] = scalars
+        buf[self.order_at:self.order_end].view(np.int32)[:] = \
+            np.asarray(order)
 
     def views(self, buf):
         """``(subset, order, scalars)`` views of a uint8 tensor of
@@ -764,7 +768,7 @@ class DrawLayout:
         if self.window:
             subset = subset[0]
         scalars = buf[self.scalars_at:self.scalars_at
-                      + N_SCALARS * self.itemsize].view(self.dtype)
+                      + self.n_scalars * self.itemsize].view(self.dtype)
         return subset, buf[self.order_at:self.order_end].view(torch.int32), \
             scalars
 

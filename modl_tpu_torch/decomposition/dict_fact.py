@@ -105,7 +105,8 @@ class _PickleStateMixin:
     RAM, where the next ``partial_fit`` places it; the tensor attributes
     named in ``_DEVICE_FIELDS`` go as plain arrays; the transient
     buffers (``_offload_staging``, ``_draw_staging``) and the device
-    programs (``_program``, ``_scans``) are dropped. A mesh is dropped
+    programs (``_program``, ``_scans``; a recsys fit's ``_programs``)
+    are dropped. A mesh is dropped
     too (the JAX package's mixin does the same): a sharded state is
     gathered whole (every rank pickles) and loads as a single-process
     estimator."""
@@ -120,7 +121,7 @@ class _PickleStateMixin:
             if state.get(name) is not None:
                 state[name] = state[name].cpu().numpy()
         for name in ('_offload_staging', '_draw_staging', '_program',
-                     '_scans'):
+                     '_scans', '_programs'):
             state.pop(name, None)
         if state.get('mesh') is not None:
             state['mesh'] = None

@@ -2,10 +2,12 @@
 
 Counterpart of ``modl_tpu/decomposition/recsys.py`` on PyTorch. Each
 minibatch of CSR rows is packed into (b, P) padded (index, value)
-blocks, the pad index being ``n_features``, and one step runs
+blocks, the pad index being ``n_features``, and one batch runs
 
 - per-row masked ridge codes ``(D_s D_s^T + alpha |s| / n I) c =
-  D_s x_s`` as a batched Cholesky (``_masked_ridge_codes``),
+  D_s x_s`` as a batched Cholesky factorisation and two batched
+  triangular solves (``_masked_ridge_codes``, through
+  ``ops.solvers.ridge_multi_gram``),
 - the order-dependent per-feature B EMA of the reference's serial loop
   in closed form, by cumulative sums down the rows of the batch
   (``_b_ema_dense``),
@@ -15,6 +17,30 @@ blocks, the pad index being ``n_features``, and one step runs
   (``ops/bcd.py``, one launch a batch, or the SOMF step's block driver
   where the kernel's plan does not take (k, n)), which leaves the other
   columns at zero; only the union columns of its result are kept.
+
+A batch writes every leaf of the fit's :class:`RecsysState` in place
+and takes what changes from batch to batch from device tensors: its
+rows' ids, its atom order and its scalars (:func:`batch_scalars`,
+computed on the host in the state's dtype from the host ``n_iter``).
+Those reach the card in one non-blocking copy from pinned memory
+(``_step.DrawStaging``), so a batch reads nothing back and the host
+never waits for the card.
+
+Batches are grouped as the JAX package groups them
+(:func:`recsys_epoch`): a fit without a callback or ``verbose`` runs
+each window of ``WINDOW`` = 32 consecutive full-size batches together,
+and every other batch alone (an interactive fit runs every batch
+alone, the callback and the verbose schedule before each). Where
+``_program.capturable_recsys`` takes the fit (the BCD kernel on the
+card, resident rows, no mesh), a window is one replay of a captured
+CUDA graph (``_program.RecsysProgram``, the counterpart of the jitted
+``_recsys_window_resident``) and every other batch one replay of a
+one-batch graph of its size (``_recsys_batch_resident``); the short
+last batch of an epoch gets a one-batch graph of its own. The host
+draws, stages one copy and launches one graph. A fit builds its
+programs anew, and a capture that fails raises. Other fits (a mesh,
+rows packed a batch at a time, the plain BCD) run the same batch body
+eagerly.
 
 JAX's out-of-range semantics are explicit here: gathers read the pad
 index from an appended zero row, and scatters send pad and invalid
@@ -26,8 +52,8 @@ The whole matrix is packed once when the padded size fits
 ``RESIDENT_BUDGET`` (batches are then row gathers), else each batch is
 packed at its own width. Row lengths for the widths come from the
 host's copy of ``indptr``, so the epoch loop reads nothing back from
-the device. The JAX package's windows of 32 batches and its alternative
-B-EMA formulation are not ported.
+the device. The JAX package's alternative B-EMA formulation is not
+ported.
 
 ``mesh=`` (a DeviceMesh with a ``'dp'`` axis, ``parallel.make_mesh``)
 runs the fit SPMD, every rank with the same data and ``random_state``:
@@ -39,7 +65,9 @@ where ``dp`` does not divide it) and the codes are reassembled, and the
 rest of the step (B and C EMAs, the union BCD kernel) runs replicated on
 every rank, as in the JAX package.
 """
+import functools
 import time
+from dataclasses import dataclass
 from math import ceil, log
 
 import numpy as np
@@ -49,10 +77,11 @@ import torch
 from ..base import BaseEstimator, check_random_state, gen_batches
 from ..ops import bcd
 from ..ops.precision import precise
-from ..ops.solvers import _cholesky
+from ..ops.solvers import ridge_multi_gram
 from ..ops.weights import batch_weight
 from ..parallel import mesh as pmesh
-from ._step import _np_dtype, bcd_kernel
+from . import _program
+from ._step import DrawLayout, DrawStaging, _np_dtype, bcd_kernel
 from .dict_fact import _PickleStateMixin, _resolve_device, _torch_dtype
 
 __all__ = ["RecsysDictFact", "compute_biases", "rmse"]
@@ -60,6 +89,42 @@ __all__ = ["RecsysDictFact", "compute_biases", "rmse"]
 # device budget (bytes of int32 index + value) for packing every row
 # once; above it each batch is packed at its own width
 RESIDENT_BUDGET = 512 * 1024 * 1024
+# full-size batches a window runs together in a fit that is not
+# interactive (the JAX package's window, recsys.py:791)
+WINDOW = 32
+# batches run by fits, eagerly or by programs (read by chip_smoke.py)
+BATCHES = 0
+# a batch's scalars on the device (:func:`batch_scalars`)
+N_SCALARS = 3
+
+
+@dataclass
+class RecsysState:
+    """A recsys fit's learner state: device tensors, each written in
+    place by every batch (the programs hold their addresses), and the
+    host int ``n_iter``."""
+    D: torch.Tensor
+    C: torch.Tensor
+    B: torch.Tensor
+    comp_norm: torch.Tensor
+    feature_n_iter: torch.Tensor
+    code: torch.Tensor
+    n_iter: int = 0
+
+    def leaves(self):
+        return [self.D, self.C, self.B, self.comp_norm,
+                self.feature_n_iter, self.code]
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    """What a recsys batch takes besides its data and draws: the ridge
+    ``alpha``, the ``learning_rate``, whether the BCD kernel runs
+    (``use_kernel``) and the mesh (None off a mesh)."""
+    alpha: float
+    learning_rate: float
+    use_kernel: bool
+    mesh: object = None
 
 
 def _next_pow2(x):
@@ -183,7 +248,8 @@ def _batch_codes(D, idx, val, lens, alpha, mesh):
 @precise
 def _masked_ridge_codes(D, idx, val, lens, alpha):
     """Per-row masked ridge solves; rows with an empty support get a
-    zero code. D (k, n); idx/val (b, P) padded; lens (b,)."""
+    zero code. D (k, n); idx/val (b, P) padded; lens (b,). The solves
+    are ``ops.solvers.ridge_multi_gram``'s, which a capture takes."""
     k, n = D.shape
     # support columns as rows of D^T, plus a zero row read by the pad
     # index n
@@ -193,13 +259,21 @@ def _masked_ridge_codes(D, idx, val, lens, alpha):
     G = torch.einsum('bpk,bpq->bkq', Dg, Dg)
     lens_f = torch.clamp(lens, min=1).to(D.dtype)
     ridge = _full(alpha, lens_f) / (_full(n, lens_f) / lens_f)
-    G = G + ridge[:, None, None] * torch.eye(k, dtype=D.dtype,
-                                             device=D.device)
-    code = torch.cholesky_solve(Dx[..., None], _cholesky(G))[..., 0]
+    code = ridge_multi_gram(G, Dx, ridge[:, None, None])
     return torch.where((lens > 0)[:, None], code, torch.zeros_like(code))
 
 
-def _b_ema_dense(B, feature_n_iter, code_b, idx, val, lens, w, n_iter_new):
+def _valid_cols(idx, lens, fill):
+    """The batch's columns as int64, with pad and invalid entries (past
+    a row's length) sent to column ``fill``."""
+    P = idx.shape[1]
+    invalid = torch.arange(P, device=idx.device)[None, :] >= lens[:, None]
+    # masked_fill takes the fill as a kernel argument (torch.where would
+    # copy a Python number from host memory, which a capture refuses)
+    return idx.long().masked_fill(invalid, fill)
+
+
+def _b_ema_dense(B, feature_n_iter, code_b, idx, val, lens, wn):
     """Order-dependent per-feature B EMA of one batch, in closed form.
 
     The reference's serial loop gives row j the weight ``min(1, w
@@ -210,15 +284,14 @@ def _b_ema_dense(B, feature_n_iter, code_b, idx, val, lens, w, n_iter_new):
     cumulative sum of the occupancy down the rows, and the exclusive
     suffix decay product is a reversed cumulative product (absent
     entries contribute factors of exactly 1). Pad and invalid entries
-    go to the dump column ``n + 1``. ``w`` is a host scalar of the state
-    dtype and ``n_iter_new`` a host int. Returns ``(B, feature_n_iter)``.
+    go to the dump column ``n + 1``. ``wn`` is ``w n_iter`` (a 0-d
+    tensor of the state dtype, :func:`batch_scalars`). Writes ``B`` and
+    ``feature_n_iter`` in place and returns them.
     """
     k, n = B.shape
     b, P = idx.shape
-    device = B.device
-    valid = torch.arange(P, device=device)[None, :] < lens[:, None]
-    cols = torch.where(valid, idx.long(), n + 1)
-    rows = torch.arange(b, device=device)[:, None].expand(b, P)
+    cols = _valid_cols(idx, lens, n + 1)
+    rows = torch.arange(b, device=B.device)[:, None].expand(b, P)
     # every write to the dump column is the same value (1, or a pad's 0);
     # the values are device tensors (a Python scalar would be copied over)
     occ = B.new_zeros((b, n + 2))
@@ -231,57 +304,167 @@ def _b_ema_dense(B, feature_n_iter, code_b, idx, val, lens, w, n_iter_new):
     fni_ext = torch.cat([feature_n_iter,
                          feature_n_iter.new_zeros(2)]).to(B.dtype)
     count = fni_ext[None, :] + rank + 1.0
-    wn = float(w * _np_dtype(B.dtype).type(n_iter_new))
-    w_rc = torch.clamp(_full(wn, count) / torch.clamp(count, min=1.0),
-                       max=1.0) * occ
+    w_rc = torch.clamp(wn / torch.clamp(count, min=1.0), max=1.0) * occ
     q = 1.0 - w_rc
     sfx = torch.flip(torch.cumprod(torch.flip(q, (0,)), 0), (0,))
     sfx_excl = torch.cat([sfx[1:], torch.ones_like(sfx[:1])])
-    B = torch.addmm(B * sfx[0, :n][None, :], code_b.T,
-                    (w_rc * xv * sfx_excl)[:, :n])
-    feature_n_iter = feature_n_iter + csum[-1, :n].to(feature_n_iter.dtype)
+    B.mul_(sfx[0, :n][None, :]).addmm_(code_b.T,
+                                      (w_rc * xv * sfx_excl)[:, :n])
+    feature_n_iter.add_(csum[-1, :n].to(feature_n_iter.dtype))
     return B, feature_n_iter
 
 
 @precise
-def _recsys_batch_step(D, C, B, comp_norm, feature_n_iter, n_iter, code_b,
-                       idx, val, lens, order, learning_rate,
+def _recsys_batch_step(state, code_b, idx, val, lens, order, scalars,
                        use_kernel=False):
-    """One batch update once the codes are solved: the B EMA, the C EMA,
-    the union mask and the union BCD. ``n_iter`` is a host int; returns
-    ``(D, C, B, comp_norm, feature_n_iter, n_iter)``.
+    """One batch update once the codes are solved, in place on
+    ``state``'s leaves: the B EMA, the C EMA, the union mask and the
+    union BCD. ``scalars`` are the batch's (:func:`batch_scalars`) on the
+    device and ``order`` its atom order there.
 
     ``use_kernel`` runs the BCD kernel (one call, or the block driver
     where its plan does not take (k, n)); otherwise its plain version
     runs on the same masked inputs (its math is the JAX package's lax
     loop: budget ``cn + ||D_j||^2`` at visit time, the atom kept where
     ``C_jj <= 1e-20``)."""
-    k, n = D.shape
-    b, P = idx.shape
-    np_dtype = _np_dtype(D.dtype)
-    n_iter_new = n_iter + b
-    w = batch_weight(n_iter_new, b, learning_rate, 0.0, np_dtype)
-
-    B, feature_n_iter = _b_ema_dense(B, feature_n_iter, code_b, idx, val,
-                                     lens, w, n_iter_new)
-    C = (C * float(np_dtype.type(1.0) - w)
-         + float(w / np_dtype.type(b)) * (code_b.T @ code_b))
+    D, C, B = state.D, state.C, state.B
+    n = D.shape[1]
+    wn, decay, w_b = scalars.unbind()
+    _b_ema_dense(B, state.feature_n_iter, code_b, idx, val, lens, wn)
+    C.mul_(decay).add_(w_b * (code_b.T @ code_b))
 
     # union of supports: a scatter into n + 1 slots, the pad slot dropped
-    valid = torch.arange(P, device=D.device)[None, :] < lens[:, None]
     slots = D.new_zeros(n + 1)
-    slots.index_fill_(0, torch.where(valid, idx.long(), n).reshape(-1), 1.0)
+    slots.index_fill_(0, _valid_cols(idx, lens, n).reshape(-1), 1.0)
     union_f = slots[:n]
 
     if use_kernel:
         D_new, comp_norm = bcd_kernel(D * union_f, B * union_f, C,
-                                      comp_norm, order, False, 0.0)
+                                      state.comp_norm, order, False, 0.0)
     else:
         D_new, comp_norm = bcd.bcd_update_reference(
-            D * union_f, B * union_f, C, comp_norm, order, comp_pos=False,
-            l1_ratio=0.0)
-    D = torch.where(union_f[None, :] > 0, D_new, D)
-    return D, C, B, comp_norm, feature_n_iter, n_iter_new
+            D * union_f, B * union_f, C, state.comp_norm, order,
+            comp_pos=False, l1_ratio=0.0)
+    torch.where(union_f[None, :] > 0, D_new, D, out=D)
+    state.comp_norm.copy_(comp_norm)
+
+
+def batch_scalars(state, cfg, b):
+    """Advance ``state.n_iter`` by a batch of ``b`` and return the batch's
+    ``N_SCALARS`` scalars as a numpy array of the state's dtype, computed
+    in that dtype as the JAX package's step computes them from its
+    ``n_iter``: ``w n_iter``, ``1 - w`` and ``w / b``, with ``w`` the
+    batch weight (``batch_weight``). ``n_iter`` and ``w`` reach the
+    device only through these."""
+    np_dtype = _np_dtype(state.D.dtype)
+    state.n_iter += b
+    w = batch_weight(state.n_iter, b, cfg.learning_rate, 0.0, np_dtype)
+    return np.array([w * np_dtype.type(state.n_iter),
+                     np_dtype.type(1.0) - w, w / np_dtype.type(b)], np_dtype)
+
+
+def draw_layout(state, b):
+    """Where a batch's rows (b,), order and scalars lie in its staged
+    bytes (``_step.DrawLayout``)."""
+    return DrawLayout(b, state.D.shape[0], state.D.dtype,
+                      n_scalars=N_SCALARS)
+
+
+@precise
+def _recsys_batch(state, cfg, idx, val, lens, rows, order, scalars):
+    """One batch given its packed rows and its draws on the device: the
+    codes (solved on ``dp`` blocks on a mesh), their write into
+    ``state.code`` at ``rows``, then :func:`_recsys_batch_step`."""
+    code_b = _batch_codes(state.D, idx, val, lens, cfg.alpha, cfg.mesh)
+    state.code.index_copy_(0, rows, code_b)
+    _recsys_batch_step(state, code_b, idx, val, lens, order, scalars,
+                       use_kernel=cfg.use_kernel)
+
+
+def _resident_batch(state, cfg, resident, rows, order, scalars):
+    """A batch of the resident packed rows: their gathers by the device
+    row ids ``rows`` (reassembled over ``dp`` on a mesh), then
+    :func:`_recsys_batch`. The body a ``RecsysProgram`` captures."""
+    idx, val, lens = _batch_rows(resident, rows, cfg.mesh)
+    _recsys_batch(state, cfg, idx, val, lens, rows, order, scalars)
+
+
+def recsys_batches(state, cfg, src, rows_w, orders_w, staging):
+    """Batches run eagerly: their scalars (:func:`batch_scalars`, which
+    advances ``state.n_iter``), rows and orders sent to the device in one
+    non-blocking copy through ``staging`` (a ``_step.DrawStaging``),
+    then each batch's body. ``rows_w`` (T, b) and ``orders_w`` (T, k)
+    are host arrays; ``src`` the resident packed rows or a
+    ``_DeviceCSR``, whose batches are packed each at its own width."""
+    b = rows_w.shape[1]
+    steps = staging.send_steps(
+        draw_layout(state, b), [(rows, order, batch_scalars(state, cfg, b))
+                                for rows, order in zip(rows_w, orders_w)])
+    for rows_h, (rows, order, scalars) in zip(rows_w, steps):
+        if isinstance(src, _DeviceCSR):
+            idx, val, lens, _ = _pad_rows(src, rows_h, rows)
+            _recsys_batch(state, cfg, idx, val, lens, rows, order, scalars)
+        else:
+            _resident_batch(state, cfg, src, rows, order, scalars)
+
+
+def _run(state, cfg, src, rows_w, orders_w, programs, staging):
+    """T batches of b rows (``rows_w`` (T, b)): one run of the
+    ``RecsysProgram`` of (T, b) in ``programs`` (built on first use)
+    where ``programs`` is a dict, else :func:`recsys_batches`."""
+    global BATCHES
+    T, b = rows_w.shape
+    if programs is None:
+        recsys_batches(state, cfg, src, rows_w, orders_w, staging)
+    else:
+        prog = programs.get((T, b))
+        if prog is None:
+            prog = programs[(T, b)] = _program.RecsysProgram(
+                state.leaves() + list(src[:3]),
+                functools.partial(_resident_batch, state, cfg, src),
+                draw_layout(state, b), T)
+        prog.stage([(rows, order, batch_scalars(state, cfg, b))
+                    for rows, order in zip(rows_w, orders_w)])
+        prog.run()
+    BATCHES += T
+
+
+def recsys_epoch(state, cfg, src, random_state, batch_size, programs,
+                 staging, before_batch=None):
+    """One epoch over ``state.code``'s rows, grouped and drawn as the
+    JAX package's fit does (``modl_tpu/decomposition/recsys.py:824-893``):
+    the epoch's permutation, then in turn each window of ``WINDOW``
+    consecutive full-size batches with its ``WINDOW`` atom orders, where
+    ``before_batch`` is None (the fit is not interactive), or else each
+    batch alone, ``before_batch()`` (the callback and the verbose
+    schedule) called before its order is drawn. ``programs``: a dict of
+    the fit's ``RecsysProgram``s by (T, b), which run the windows (T =
+    ``WINDOW``) and the other batches (T = 1, one program a batch size:
+    the short last batch has its own); None runs every batch eagerly
+    through ``staging`` (a ``_step.DrawStaging``). ``src`` is the
+    resident packed rows, or a ``_DeviceCSR`` (eager only)."""
+    n_samples = state.code.shape[0]
+    k = state.D.shape[0]
+    window = WINDOW if before_batch is None else 1
+    permutation = random_state.permutation(n_samples)
+    batches = list(gen_batches(n_samples, batch_size))
+    pos = 0
+    while pos < len(batches):
+        group = batches[pos:pos + window]
+        if before_batch is None and len(group) == window and all(
+                bt.stop - bt.start == batch_size for bt in group):
+            rows_w = np.stack([permutation[bt] for bt in group])
+            orders_w = np.stack([random_state.permutation(k)
+                                 for _ in group])
+            pos += window
+        else:
+            batch = batches[pos]
+            pos += 1
+            if before_batch is not None:
+                before_batch()
+            rows_w = permutation[batch][None]
+            orders_w = random_state.permutation(k)[None]
+        _run(state, cfg, src, rows_w, orders_w, programs, staging)
 
 
 @precise
@@ -341,6 +524,42 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
         self.dtype = dtype
 
     def fit(self, X, y=None):
+        state, cfg, csr, resident, batch_size = self._start(X)
+        # a dict of programs where the fit runs as programs, built anew
+        # each fit
+        self._programs = ({} if _program.capturable_recsys(
+            cfg, resident is not None) else None)
+        staging = DrawStaging(state.D.device)
+        interactive = bool(self.verbose) or self.callback is not None
+        before_batch = (functools.partial(self._before_batch, state)
+                        if interactive else None)
+        src = csr if resident is None else resident
+        t0 = time.perf_counter()
+        for _ in range(self.n_epochs):
+            recsys_epoch(state, cfg, src, self.random_state, batch_size,
+                         self._programs, staging, before_batch)
+            self.n_iter_ = state.n_iter
+        if state.D.device.type == 'cuda':
+            torch.cuda.synchronize(state.D.device)
+        self.time_ = time.perf_counter() - t0
+        self._code = self._refit_device(state.D, csr, resident)
+        return self
+
+    def _make_config(self, device):
+        """The fit's :class:`RecsysConfig`: the BCD kernel on the card, its
+        plain version on the CPU."""
+        return RecsysConfig(alpha=float(self.alpha),
+                            learning_rate=float(self.learning_rate),
+                            use_kernel=device.type == 'cuda', mesh=self.mesh)
+
+    def _start(self, X):
+        """A fit's set-up: the checks, the detrending, the initial
+        dictionary (the first draw of ``random_state``), the packed rows
+        (resident where they fit ``RESIDENT_BUDGET``) and the initial
+        codes, and zero statistics. Sets the fitted attributes that do
+        not change during the epochs; returns ``(state, cfg, csr,
+        resident, batch_size)``, ``state`` a :class:`RecsysState` whose
+        tensors are ``_D``, ``_C``, ``_B`` and ``_code``."""
         mesh = self.mesh
         if mesh is not None and 'dp' not in (mesh.mesh_dim_names or ()):
             raise ValueError(
@@ -349,10 +568,8 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
                 'the ridge solves split over dp')
         device = _resolve_device(self.device)
         tdtype = _torch_dtype(self.dtype)
-        # the BCD kernel on the card (float32 only), its plain version on
-        # the CPU
-        use_kernel = device.type == 'cuda'
-        if use_kernel and tdtype != torch.float32:
+        cfg = self._make_config(device)
+        if device.type == 'cuda' and tdtype != torch.float32:
             raise ValueError(f'RecsysDictFact: the CUDA BCD kernel takes '
                              f'float32 state, got dtype={self.dtype!r}; '
                              'float64 fits run with device="cpu"')
@@ -385,68 +602,41 @@ class RecsysDictFact(_PickleStateMixin, BaseEstimator):
 
         self.feature_freq_ = np.bincount(X.indices, minlength=n_features) \
             / n_samples
-        feature_n_iter = torch.zeros(n_features, dtype=torch.int32,
-                                     device=device)
         sparsity = X.nnz / n_samples / n_features
         if self.batch_size is None:
             batch_size = int(ceil(1. / sparsity))
         else:
             batch_size = self.batch_size
-
-        comp_norm = torch.zeros(k, dtype=tdtype, device=device)
-        C = torch.zeros((k, k), dtype=tdtype, device=device)
-        B = torch.zeros((k, n_features), dtype=tdtype, device=device)
-        n_iter = 0
         if self.verbose:
             log_lim = log(n_samples * self.n_epochs / batch_size, 10)
             self.verbose_iter_ = ((np.logspace(0, log_lim, self.verbose,
                                                base=10) - 1)
                                   * batch_size).tolist()
 
-        self._D, self._C, self._B, self._code = D, C, B, code
-        self.n_iter_ = n_iter
-        alpha = float(self.alpha)
-        lr = float(self.learning_rate)
-        self.use_kernel_ = use_kernel
+        state = RecsysState(
+            D=D, C=torch.zeros((k, k), dtype=tdtype, device=device),
+            B=torch.zeros((k, n_features), dtype=tdtype, device=device),
+            comp_norm=torch.zeros(k, dtype=tdtype, device=device),
+            feature_n_iter=torch.zeros(n_features, dtype=torch.int32,
+                                       device=device),
+            code=code)
+        self._D, self._C, self._B, self._code = (state.D, state.C, state.B,
+                                                 state.code)
+        self.n_iter_ = 0
+        self.use_kernel_ = cfg.use_kernel
+        return state, cfg, csr, resident, batch_size
 
-        t0 = time.perf_counter()
-        for _ in range(self.n_epochs):
-            # the JAX package's draws, in its order: the epoch's
-            # permutation, then one atom order a batch
-            permutation = self.random_state.permutation(n_samples)
-            batches = list(gen_batches(n_samples, batch_size))
-            orders = np.stack([self.random_state.permutation(k)
-                               for _ in batches])
-            perm_dev = torch.as_tensor(permutation).to(device)
-            orders_dev = torch.as_tensor(orders).to(device)
-            for t, batch in enumerate(batches):
-                if self.verbose and getattr(self, 'verbose_iter_', None) \
-                        and n_iter >= self.verbose_iter_[0]:
-                    print('Iteration %i' % n_iter)
-                    self.verbose_iter_ = self.verbose_iter_[1:]
-                    self._callback()
-                elif not self.verbose and self.callback is not None:
-                    self._callback()
-                rows = perm_dev[batch]
-                if resident is not None:
-                    idx, val, lens = _batch_rows(resident, rows, mesh)
-                else:
-                    idx, val, lens, _ = _pad_rows(csr, permutation[batch],
-                                                  rows)
-                code_b = _batch_codes(D, idx, val, lens, alpha, mesh)
-                code[rows] = code_b
-                D, C, B, comp_norm, feature_n_iter, n_iter = \
-                    _recsys_batch_step(D, C, B, comp_norm, feature_n_iter,
-                                       n_iter, code_b, idx, val, lens,
-                                       orders_dev[t], lr,
-                                       use_kernel=use_kernel)
-                self._D, self._C, self._B = D, C, B
-                self.n_iter_ = n_iter
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
-        self.time_ = time.perf_counter() - t0
-        self._code = self._refit_device(D, csr, resident)
-        return self
+    def _before_batch(self, state):
+        """An interactive fit's hook before each batch: the verbose
+        schedule's print and callback, or the callback alone."""
+        self.n_iter_ = state.n_iter
+        if self.verbose and getattr(self, 'verbose_iter_', None) \
+                and state.n_iter >= self.verbose_iter_[0]:
+            print('Iteration %i' % state.n_iter)
+            self.verbose_iter_ = self.verbose_iter_[1:]
+            self._callback()
+        elif not self.verbose and self.callback is not None:
+            self._callback()
 
     def _refit_device(self, D, csr, resident, chunk=2048):
         """All codes on dictionary D, in chunks of ``chunk`` rows at one

@@ -6,7 +6,9 @@ Counterpart of ``modl_tpu/ops/solvers.py`` (the reference's
 - ``ridge_single_gram``: one Cholesky factorisation of ``G + alpha I``
   shared by every sample of the batch (``torch.linalg.cholesky_ex`` +
   ``torch.cholesky_solve``).
-- ``ridge_multi_gram``: per-sample Grams, one batched Cholesky solve.
+- ``ridge_multi_gram``: per-sample Grams, one batched Cholesky solve
+  (``spd_solve``: a batched factorisation and two batched triangular
+  solves, all capturable in a CUDA graph).
 - ``enet_cd_gram``: coordinate descent on
   ``1/2 w^T Q w - q^T w + alpha ||w||_1 + beta/2 ||w||_2^2`` with the
   incremental ``H = Q w`` bookkeeping and the duality-gap stop; every
@@ -23,7 +25,8 @@ import torch
 
 from .fista import _duality_gap, _soft_threshold, fista_gram
 
-__all__ = ["ridge_single_gram", "ridge_multi_gram", "enet_cd_gram",
+__all__ = ["ridge_single_gram", "ridge_multi_gram", "spd_solve",
+           "enet_cd_gram",
            "fista_gram", "enet_regression_single_gram",
            "enet_regression_multi_gram"]
 
@@ -42,11 +45,24 @@ def ridge_single_gram(G, Dx, alpha):
     return torch.cholesky_solve(Dx.T, _cholesky(Greg)).T
 
 
+def spd_solve(A, rhs):
+    """Batched positive-definite solves ``A x = rhs``: A (b, k, k), rhs
+    (b, k) -> x (b, k). A batched Cholesky factorisation (cuSOLVER's
+    batched potrf on the card) and two batched triangular solves
+    (cuBLAS's batched trsm), which a CUDA graph captures; the batched
+    ``torch.cholesky_solve`` goes to MAGMA's ``potrs_batched``, which
+    allocates device memory during the call and so cannot be captured."""
+    L = _cholesky(A)
+    y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+
+
 def ridge_multi_gram(G, Dx, alpha):
-    """Per-sample ridge solves: G (b, k, k), Dx (b, k) -> code (b, k)."""
+    """Per-sample ridge solves: G (b, k, k), Dx (b, k) -> code (b, k);
+    ``alpha`` a number or a (b, 1, 1) tensor of per-sample ridges."""
     k = G.shape[-1]
     Greg = G + alpha * torch.eye(k, dtype=G.dtype, device=G.device)
-    return torch.cholesky_solve(Dx[..., None], _cholesky(Greg))[..., 0]
+    return spd_solve(Greg, Dx)
 
 
 def enet_cd_gram(w0, Q, q, y_norm2, l1_reg, l2_reg, positive, max_iter,

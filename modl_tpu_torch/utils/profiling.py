@@ -13,8 +13,8 @@ import time
 
 import torch
 
-__all__ = ["sync", "device_trace", "device_summary", "host_waits",
-           "idle_gaps", "StepTimer"]
+__all__ = ["sync", "device_trace", "device_summary", "device_busy_s",
+           "host_waits", "idle_gaps", "StepTimer"]
 
 # the CUDA runtime's calls in which the host waits for the card
 WAIT_CALLS = ('cudaDeviceSynchronize', 'cudaStreamSynchronize',
@@ -77,6 +77,15 @@ def device_summary(prof):
     reads = sum(e.count for e in events
                 if e.key == 'aten::_local_scalar_dense')
     return busy, sum(e.count for e in device), reads, device
+
+
+def device_busy_s(prof):
+    """The busy seconds of :func:`device_summary`, summed from the
+    profiler's raw events (each kernel and copy on the device once): a
+    pass over the events, where ``key_averages`` over an eager recsys
+    epoch's ~10^5 ops takes tens of seconds."""
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type().name == 'CUDA') / 1e9
 
 
 def host_waits(prof):

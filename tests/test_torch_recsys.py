@@ -118,8 +118,10 @@ def test_b_ema_dense_matches_jax_and_serial_oracle():
     code_b = trec._masked_ridge_codes(T(D), idx, val, lens, 0.1)
     n_iter_new = n_iter0 + b
     w = trec.batch_weight(n_iter_new, b, lr, 0.0, np.float64)
-    B, fni = trec._b_ema_dense(T(B0), T(fni0), code_b, idx, val, lens, w,
-                               n_iter_new)
+    # the port takes w n_iter as a device scalar and writes B and the
+    # counts in place (into copies: T() shares the numpy arrays' memory)
+    B, fni = trec._b_ema_dense(T(B0.copy()), T(fni0.copy()), code_b, idx,
+                               val, lens, torch.tensor(w * n_iter_new))
 
     B_jax, fni_jax = jrec._b_ema_dense(
         jnp.asarray(B0), jnp.asarray(fni0), jnp.asarray(to_np(code_b)),
@@ -172,27 +174,26 @@ def test_batch_steps_match_jax_from_carried_state(route, monkeypatch):
     old = bp.INTERPRET
     bp.INTERPRET = True
     try:
-        state = (jnp.asarray(D), jnp.zeros((k, k), dtype),
-                 jnp.zeros((k, n), dtype), jnp.zeros((k,), dtype),
-                 jnp.zeros((n,), jnp.int32), jnp.zeros((), jnp.int32),
-                 jnp.zeros((n_samples, k), dtype))
-        state = jax_step(state, *draws[0])
+        jax_state = (jnp.asarray(D), jnp.zeros((k, k), dtype),
+                     jnp.zeros((k, n), dtype), jnp.zeros((k,), dtype),
+                     jnp.zeros((n,), jnp.int32), jnp.zeros((), jnp.int32),
+                     jnp.zeros((n_samples, k), dtype))
+        jax_state = jax_step(jax_state, *draws[0])
         names = ('D', 'C', 'B', 'comp_norm', 'feature_n_iter', 'n_iter',
                  'code')
         st = convert.recsys_state_from_jax(
-            {name: np.asarray(v) for name, v in zip(names, state)},
+            {name: np.asarray(v) for name, v in zip(names, jax_state)},
             device='cpu')
         for rows, order in draws[1:]:
-            state = jax_step(state, rows, order)
+            jax_state = jax_step(jax_state, rows, order)
     finally:
         bp.INTERPRET = old
 
     assert st['D'].dtype == getattr(torch, np.dtype(dtype).name)
     assert st['n_iter'] == b and st['feature_n_iter'].dtype == torch.int32
     csr = _port_csr(X, st['D'].dtype)
-    D_p, C_p, B_p, cn_p, fni_p, nit_p = (
-        st['D'], st['C'], st['B'], st['comp_norm'], st['feature_n_iter'],
-        st['n_iter'])
+    state = trec.RecsysState(**st)
+    cfg = trec.RecsysConfig(alpha=alpha, learning_rate=lr, use_kernel=f32)
     calls = []
     if route == 'float32-blocks':
         monkeypatch.setattr(bcd, 'MAX_ROWS', 2)
@@ -203,11 +204,14 @@ def test_batch_steps_match_jax_from_carried_state(route, monkeypatch):
         calls.append(a[0].shape), wrapper(*a, **kw))[1])
     for rows, order in draws[1:]:
         idx, val, lens, _ = trec._pad_rows(csr, rows, T(rows))
-        code_b = trec._masked_ridge_codes(D_p, idx, val, lens, alpha)
-        D_p, C_p, B_p, cn_p, fni_p, nit_p = trec._recsys_batch_step(
-            D_p, C_p, B_p, cn_p, fni_p, nit_p, code_b, idx, val, lens,
-            T(order), lr, use_kernel=f32)
-    D_j, C_j, B_j, cn_j, fni_j, nit_j, _ = state
+        code_b = trec._masked_ridge_codes(state.D, idx, val, lens, alpha)
+        trec._recsys_batch_step(
+            state, code_b, idx, val, lens, T(order),
+            T(trec.batch_scalars(state, cfg, b)), use_kernel=f32)
+    D_p, C_p, B_p, cn_p, fni_p, nit_p = (
+        state.D, state.C, state.B, state.comp_norm, state.feature_n_iter,
+        state.n_iter)
+    D_j, C_j, B_j, cn_j, fni_j, nit_j, _ = jax_state
     assert nit_p == int(nit_j) == 4 * b
     rows_per_call = {'float64-lax': [], 'float32-kernel': [k] * 3,
                      'float32-blocks': [2] * 6}[route]

@@ -35,7 +35,8 @@ from modl_tpu_torch.ops.enet import enet_projection, enet_projection_bisect
 from modl_tpu_torch.ops.sampler import Sampler
 from modl_tpu_torch.utils import random as trandom
 from modl_tpu_torch.utils import system as tsystem
-from modl_tpu_torch.utils.profiling import (StepTimer, device_summary,
+from modl_tpu_torch.utils.profiling import (StepTimer, device_busy_s,
+                                            device_summary,
                                             device_trace, host_waits,
                                             idle_gaps, sync)
 
@@ -205,6 +206,23 @@ def test_device_trace_on_the_cpu(tmp_path):
     busy, ops, reads, events = device_summary(prof)
     assert (busy, ops, events) == (0.0, 0, [])
     assert reads >= 0
+
+
+def test_device_busy_sums_the_card_s_raw_events(tmp_path):
+    """The device's kernels and copies among the raw events, once each
+    (ns); host events do not count; a CPU trace has none."""
+    def raw(device, ns):
+        return types.SimpleNamespace(
+            device_type=lambda: types.SimpleNamespace(name=device),
+            duration_ns=lambda: ns)
+    events = [raw('CUDA', 2_000_000), raw('CPU', 9_000_000),
+              raw('CUDA', 500_000)]
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    assert device_busy_s(prof) == 0.0025
+    with device_trace(str(tmp_path), device='cpu') as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert device_busy_s(prof) == 0.0
 
 
 def _event(device, start, end, key='k', count=1):
