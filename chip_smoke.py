@@ -2506,17 +2506,15 @@ class ProfiledSteps:
 
     def summary(self):
         """(wall s, device busy s, host reads, {kernel: (device ms,
-        launches)}, the host's waits for the card by call, (count, ms)
-        of the card's idle gaps of WINDOW_GAP_MS or more) of the window,
-        for the FISTA and BCD kernels."""
-        from modl_tpu_torch.utils.profiling import (device_summary,
-                                                    host_waits, idle_gaps)
+        launches)}, (count, ms) of the card's idle gaps of WINDOW_GAP_MS
+        or more) of the window, for the FISTA and BCD kernels."""
+        from modl_tpu_torch.utils.profiling import device_summary, idle_gaps
         busy, _, reads, device = device_summary(self.prof)
         kernels = {name: (sum(e.self_device_time_total for e in device
                               if name in e.key) / 1e3,
                           sum(e.count for e in device if name in e.key))
                    for name in ('fista_kernel', 'bcd_kernel')}
-        return (self.wall, busy, reads, kernels, host_waits(self.prof),
+        return (self.wall, busy, reads, kernels,
                 idle_gaps(self.prof, WINDOW_GAP_MS))
 
 
@@ -2562,7 +2560,7 @@ def image_phase():
     window = ProfiledSteps(*IMAGE_WINDOW, os.path.join(
         REPO, 'build', 'chip_smoke_trace', 'image'))
     kernel_sub = ImageDictFact(**sub, callback=window).fit(image)
-    window_s, busy, window_reads, window_kernels, waits, gaps = \
+    window_s, busy, window_reads, window_kernels, gaps = \
         window.summary()
     bcd.LAUNCHES = fista.LAUNCHES = 0
     plain_sub = ImageDictFact(**sub)
@@ -2600,8 +2598,7 @@ def image_phase():
           window_s=f'{window_s:.4f}', window_device_busy_s=f'{busy:.4f}',
           idle_share=f'{1 - busy / window_s:.4f}',
           window_host_reads=window_reads,
-          window_host_waits=','.join(f'{k}:{v}' for k, v in waits.items())
-          or None, window_idle_gaps=gaps[0],
+          window_idle_gaps=gaps[0],
           window_idle_gaps_ms=f'{gaps[1]:.3f}',
           **{f'window_{name}_ms': f'{ms:.3f}'
              for name, (ms, _) in window_kernels.items()},

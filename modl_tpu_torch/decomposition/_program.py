@@ -63,6 +63,13 @@ factorisation and triangular solves a capture takes (the batched
 ``torch.cholesky_solve`` does not: MAGMA's ``potrs_batched`` allocates
 device memory during the call).
 
+The host's parts of a program's step or epoch are spans on the
+profiler's clock (``utils.profiling.span``, which constructs nothing
+while no profiler runs): ``modl.draw``, ``modl.stage`` (with
+``modl.stage.wait`` where the ring waits for a slot), ``modl.run`` and,
+inside a first run, ``modl.capture``. No span sits inside a body, so the
+captured graphs hold only the step's work.
+
 A capture that fails raises; nothing falls back to the eager step or
 scan. A program is tied to one state object, configuration, shape and
 the addresses of the state's leaves (``holds``); the estimator builds a
@@ -76,6 +83,7 @@ import time
 import torch
 
 from ..ops import bcd, ema_gemm, fista
+from ..utils.profiling import span
 from ._step import (DrawLayout, DrawStaging, _scan_body, _step_body,
                     draw_step, epoch_scalars, step_scalars)
 
@@ -146,14 +154,16 @@ class _Program:
     def _run(self):
         """Replay the graph (capture it at the first run, after running
         the body as the warm-up) on CUDA; the body on the CPU."""
-        if self.device.type != 'cuda':
-            self.body()
-        elif self.graph is None:
-            self._capture()
-        else:
-            self.graph.replay()
-            for module, n in self.launches:
-                module.LAUNCHES += n
+        with span('modl.run'):
+            if self.device.type != 'cuda':
+                self.body()
+            elif self.graph is None:
+                with span('modl.capture'):
+                    self._capture()
+            else:
+                self.graph.replay()
+                for module, n in self.launches:
+                    module.LAUNCHES += n
 
     def _capture(self):
         """The staged inputs' run eagerly on a side stream, then the
@@ -250,10 +260,12 @@ class StepProgram(_SomfProgram):
     def step(self, X_rows, idx):
         """One minibatch update of the state: host draws and scalars as
         ``somf_step`` makes them, :meth:`stage`, :meth:`run`."""
-        subset, n_valid, order = draw_step(self.state, self.cfg)
-        scalars = step_scalars(self.state, self.cfg, self.batch_size,
-                               n_valid)
-        self.stage(X_rows, idx, (subset, order), scalars)
+        with span('modl.draw'):
+            subset, n_valid, order = draw_step(self.state, self.cfg)
+        with span('modl.stage'):
+            scalars = step_scalars(self.state, self.cfg, self.batch_size,
+                                   n_valid)
+            self.stage(X_rows, idx, (subset, order), scalars)
         self.run()
 
     def _body(self):
@@ -293,16 +305,17 @@ class ScanProgram(_SomfProgram):
         ``X`` by one device copy, and the sample indices ``idx`` (T b,
         on the device) by another."""
         T, b = self.n_batches, self.batch_size
-        scalars = epoch_scalars(self.state, self.cfg, b, draws.sizes)
-        self.staging.send_steps(
-            self.layout, list(zip(draws.subsets, draws.orders, scalars)),
-            out=self.draws)
-        flat = self.X.view(T * b, -1)
-        if rows is None:
-            flat.copy_(X[:T * b])
-        else:
-            torch.index_select(X, 0, rows, out=flat)
-        self.idx.view(-1).copy_(idx)
+        with span('modl.stage'):
+            scalars = epoch_scalars(self.state, self.cfg, b, draws.sizes)
+            self.staging.send_steps(
+                self.layout, list(zip(draws.subsets, draws.orders, scalars)),
+                out=self.draws)
+            flat = self.X.view(T * b, -1)
+            if rows is None:
+                flat.copy_(X[:T * b])
+            else:
+                torch.index_select(X, 0, rows, out=flat)
+            self.idx.view(-1).copy_(idx)
 
     def run(self):
         """Run the staged epoch (:meth:`_Program._run`)."""

@@ -60,6 +60,7 @@ from ..ops.solvers import (enet_regression_multi_gram,
                            enet_regression_single_gram)
 from ..ops.weights import batch_weight, sample_weight
 from ..parallel import mesh as pmesh
+from ..utils.profiling import span
 
 # rows per block of the plain (use_kernel=False) block-recomputed BCD
 PLAIN_BLOCK = 128
@@ -802,7 +803,8 @@ class DrawStaging:
         i = self.turn
         self.turn = 1 - i
         if self.events[i] is not None:
-            self.events[i].synchronize()
+            with span('modl.stage.wait'):
+                self.events[i].synchronize()
         nbytes = len(steps) * layout.nbytes
         slot = self.slots[i]
         if slot is None or slot.shape[0] < nbytes:

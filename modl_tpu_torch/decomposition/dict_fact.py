@@ -49,6 +49,7 @@ from ..base import (BaseEstimator, TransformerMixin, check_array,
 from ..ops.enet import enet_scale
 from ..ops.sampler import binomial_len_max, init_sampler_state
 from ..parallel import mesh as pmesh
+from ..utils.profiling import span
 from . import _program
 from ._step import (DrawStaging, SomfConfig, SomfState, compute_code,
                     draw_epoch, host_zeros, objective_value, offload_scan,
@@ -669,10 +670,11 @@ class DictFact(CodingMixin, BaseEstimator):
                                      idx[s * b:(s + 1) * b], offload)
             elif program:
                 # the scan program gathers the epoch's rows itself
-                self._scan_program(n_full, b).epoch(
-                    X_dev, idx[:n_full * b],
-                    draw_epoch(self._state, cfg, n_full),
-                    None if rows is None else rows[:n_full * b])
+                prog = self._scan_program(n_full, b)
+                with span('modl.draw'):
+                    draws = draw_epoch(self._state, cfg, n_full)
+                prog.epoch(X_dev, idx[:n_full * b], draws,
+                           None if rows is None else rows[:n_full * b])
             elif n_full > 0:
                 draws = draw_epoch(self._state, cfg, n_full)
                 self._state = somf_scan(
@@ -683,8 +685,9 @@ class DictFact(CodingMixin, BaseEstimator):
                 tail = (X_dev[n_full * b:] if rows is None
                         else X_dev[rows[n_full * b:]])
                 self._step_batch(tail, idx[n_full * b:], offload)
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
+        with span('modl.sync'):
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
         self.time_ += time.perf_counter() - t0
 
     def _step_batch(self, X_dev, idx, offload):
@@ -795,14 +798,23 @@ class DictFact(CodingMixin, BaseEstimator):
 
     def shuffle(self):
         """Co-shuffle per-sample state; return the permutation used."""
-        seed = self.random_state.randint(MAX_INT)
-        perm = np.random.RandomState(seed).permutation(self._n_samples)
         st = self._state
-        perm_dev = torch.as_tensor(perm, device=st.D.device)
-        if st.layout is not None and st.layout.split_rows:
-            self._shuffle_shards(perm_dev)
+        with span('modl.shuffle.perm'):
+            seed = self.random_state.randint(MAX_INT)
+            perm = np.random.RandomState(seed).permutation(self._n_samples)
+            perm_dev = torch.as_tensor(perm, device=st.D.device)
+        with span('modl.shuffle.gather'):
+            if st.layout is not None and st.layout.split_rows:
+                self._shuffle_shards(perm_dev)
+            else:
+                self._shuffle_leaves(perm, perm_dev)
             self.labels_ = self.labels_[perm]
-            return perm
+        return perm
+
+    def _shuffle_leaves(self, perm, perm_dev):
+        """Permute the per-sample leaves of a state off the mesh's dp
+        split by ``perm`` (numpy) or its copy on the device."""
+        st = self._state
         for name in ('code', 'G_avg', 'Dx_avg', 'sample_n_iter'):
             arr = getattr(st, name)
             if arr is None:
@@ -817,8 +829,6 @@ class DictFact(CodingMixin, BaseEstimator):
                 # in place: the leaf keeps its address, and the device
                 # programs that hold it stay valid
                 arr.copy_(torch.index_select(arr, 0, perm_dev))
-        self.labels_ = self.labels_[perm]
-        return perm
 
     def _shuffle_shards(self, perm):
         """Permute the dp-split per-sample leaves: the rows of each rank's

@@ -3,8 +3,25 @@
 The estimators keep their own accounting (``time_``, ``io_time_`` /
 ``cpu_time_``). This module adds the device layer: a synchronising
 scalar read, a ``torch.profiler`` trace with a summary of device time,
-and a step timer that reads CUDA events on the card and the host clock
-on the CPU.
+a step timer that reads CUDA events on the card and the host clock on
+the CPU, and :func:`span`, the program's named ranges on the
+profiler's clock.
+
+The program's spans (``modl.*``), each around host work of an epoch:
+
+- ``modl.draw``: the host generator's draws (an epoch's on the fused
+  route, a step's in ``StepProgram.step``);
+- ``modl.stage``: the scalars, the ring's copy, the rows' gather or
+  copy into a program's buffers;
+- ``modl.stage.wait``: the host waiting for the card to free a slot of
+  ``DrawStaging``'s ring (inside ``modl.stage`` on the program routes);
+- ``modl.run``: a program's replay (its body on the CPU; its capture at
+  the first run);
+- ``modl.capture``: a program's warm-up and capture;
+- ``modl.sync``: the wait that ends ``DictFact``'s epoch call;
+- ``modl.shuffle.perm``, ``modl.shuffle.gather``: ``DictFact.shuffle``'s
+  permutation and its copy to the card, and the per-sample leaves'
+  gathers.
 """
 import contextlib
 import dataclasses
@@ -13,12 +30,21 @@ import time
 
 import torch
 
-__all__ = ["sync", "device_trace", "device_summary", "device_busy_s",
-           "host_waits", "idle_gaps", "StepTimer"]
+__all__ = ["sync", "span", "device_trace", "device_summary",
+           "device_busy_s", "idle_gaps", "StepTimer"]
 
-# the CUDA runtime's calls in which the host waits for the card
-WAIT_CALLS = ('cudaDeviceSynchronize', 'cudaStreamSynchronize',
-              'cudaEventSynchronize')
+# what span gives while no profiler runs: one context shared by every call
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler runs (a host event on the profiler's clock, beside the
+    device's kernels and copies); otherwise one shared context that does
+    nothing, so that a span off the profiler constructs nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _first_tensor(x):
@@ -69,45 +95,53 @@ def device_summary(prof):
     and copies (one stream, so they do not overlap), their count, and
     the scalar reads by the host (``aten::_local_scalar_dense``: of
     device and host tensors alike, so ``int()`` of a host generator's
-    draw counts too; :func:`host_waits` counts the waits for the card).
-    The events are ``key_averages()``'s device rows."""
+    draw counts too). The events are ``key_averages()``'s device rows,
+    less the profiler's copies of the spans on the device's timeline."""
     events = prof.key_averages()
-    device = [e for e in events if e.device_type.name == 'CUDA']
+    device = [e for e in events
+              if e.device_type.name == 'CUDA' and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in device) / 1e6
     reads = sum(e.count for e in events
                 if e.key == 'aten::_local_scalar_dense')
     return busy, sum(e.count for e in device), reads, device
 
 
+def _merged(spans):
+    """Sorted ``(start, end)`` intervals with overlaps merged."""
+    out = []
+    for start, end in sorted(spans):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return out
+
+
 def device_busy_s(prof):
-    """The busy seconds of :func:`device_summary`, summed from the
-    profiler's raw events (each kernel and copy on the device once): a
-    pass over the events, where ``key_averages`` over an eager recsys
-    epoch's ~10^5 ops takes tens of seconds."""
-    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type().name == 'CUDA') / 1e9
-
-
-def host_waits(prof):
-    """The calls of a finished :func:`device_trace` in which the host
-    waited for the card (``WAIT_CALLS``), by name."""
-    return {e.key: e.count for e in prof.key_averages()
-            if e.key in WAIT_CALLS}
+    """The seconds in which the device ran a kernel or a copy, from the
+    profiler's raw events: their intervals merged, less the profiler's
+    copies of the spans on the device's timeline (a pass over the
+    events, where ``key_averages`` over an eager recsys epoch's ~10^5
+    ops takes tens of seconds)."""
+    busy = _merged((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type().name == 'CUDA'
+                   and not e.is_user_annotation())
+    return sum(end - start for start, end in busy) / 1e9
 
 
 def idle_gaps(prof, min_ms):
     """``(count, ms)`` of the gaps of at least ``min_ms`` between the
     device's kernels and copies in a finished :func:`device_trace`
-    (where the card sat idle, waiting for the host)."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type.name == 'CUDA')
-    count, total, end = 0, 0.0, None
-    for start, stop in spans:
-        if end is not None and start - end >= 1e3 * min_ms:
-            count += 1
-            total += start - end
-        end = stop if end is None else max(end, stop)
-    return count, total / 1e3
+    (where the card sat idle, waiting for the host); the profiler's
+    copies of the spans on the device's timeline do not fill a gap."""
+    busy = _merged((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type.name == 'CUDA'
+                   and not e.is_user_annotation)
+    gaps = [s1 - e0 for (_, e0), (s1, _) in zip(busy, busy[1:])
+            if s1 - e0 >= 1e3 * min_ms]
+    return len(gaps), sum(gaps) / 1e3
 
 
 class StepTimer:

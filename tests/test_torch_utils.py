@@ -37,8 +37,8 @@ from modl_tpu_torch.utils import random as trandom
 from modl_tpu_torch.utils import system as tsystem
 from modl_tpu_torch.utils.profiling import (StepTimer, device_busy_s,
                                             device_summary,
-                                            device_trace, host_waits,
-                                            idle_gaps, sync)
+                                            device_trace, idle_gaps,
+                                            sync)
 
 T = torch.as_tensor
 
@@ -211,12 +211,13 @@ def test_device_trace_on_the_cpu(tmp_path):
 def test_device_busy_sums_the_card_s_raw_events(tmp_path):
     """The device's kernels and copies among the raw events, once each
     (ns); host events do not count; a CPU trace has none."""
-    def raw(device, ns):
+    def raw(device, start, ns):
         return types.SimpleNamespace(
             device_type=lambda: types.SimpleNamespace(name=device),
-            duration_ns=lambda: ns)
-    events = [raw('CUDA', 2_000_000), raw('CPU', 9_000_000),
-              raw('CUDA', 500_000)]
+            start_ns=lambda: start, duration_ns=lambda: ns,
+            is_user_annotation=lambda: False)
+    events = [raw('CUDA', 0, 2_000_000), raw('CPU', 0, 9_000_000),
+              raw('CUDA', 3_000_000, 500_000)]
     prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
         kineto_results=types.SimpleNamespace(events=lambda: events)))
     assert device_busy_s(prof) == 0.0025
@@ -228,7 +229,8 @@ def test_device_busy_sums_the_card_s_raw_events(tmp_path):
 def _event(device, start, end, key='k', count=1):
     return types.SimpleNamespace(
         device_type=types.SimpleNamespace(name=device), key=key,
-        count=count, time_range=types.SimpleNamespace(start=start, end=end))
+        count=count, time_range=types.SimpleNamespace(start=start, end=end),
+        is_user_annotation=False)
 
 
 def test_idle_gaps_sum_the_card_s_long_gaps():
@@ -242,16 +244,6 @@ def test_idle_gaps_sum_the_card_s_long_gaps():
     assert idle_gaps(prof, 1.0) == (1, 1.5)
     assert idle_gaps(types.SimpleNamespace(events=lambda: []), 0.5) == \
         (0, 0.0)
-
-
-def test_host_waits_by_name():
-    rows = [_event('CPU', 0, 0, 'cudaStreamSynchronize', 3),
-            _event('CPU', 0, 0, 'cudaEventSynchronize', 2),
-            _event('CPU', 0, 0, 'cudaMemcpyAsync', 9),
-            _event('CPU', 0, 0, 'aten::mm', 4)]
-    prof = types.SimpleNamespace(key_averages=lambda: rows)
-    assert host_waits(prof) == {'cudaStreamSynchronize': 3,
-                                'cudaEventSynchronize': 2}
 
 
 def test_host_reads_count_the_host_generator_s_draws(tmp_path):
@@ -268,4 +260,3 @@ def test_host_reads_count_the_host_generator_s_draws(tmp_path):
         for _ in range(10):
             draw_step(df._state, df._cfg)
     assert device_summary(prof)[2] == 20
-    assert host_waits(prof) == {}
