@@ -15,6 +15,12 @@ if ROOT not in sys.path:
 # fused epoch still defers B over segments of several steps
 SMALL = dict(n_samples=60, n_features=4000, planted_rank=5)
 SMALL_ESTIMATOR = dict(n_components=5, batch_size=10)
+# the recsys configuration's: k=8, 300 users of 120 films, 9,000 ratings
+# (20 to 120 a user, the middle one 26, the same laws), batches of
+# ceil(1 / density) = 6
+RECSYS_SMALL = dict(n_samples=300, n_features=120, n_ratings=9000,
+                    users=dict(min=20, median=26, max=120))
+RECSYS_SMALL_ESTIMATOR = dict(n_components=8)
 
 
 def pytest_configure(config):

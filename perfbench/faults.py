@@ -1,7 +1,8 @@
 """Faults planted in the program, which the comparison has to catch
 (``tests/test_perfbench_checks.py`` on the CPU, ``readings.py`` on the
-card). Each is a context manager that patches the port while it is
-open; a program captured inside it keeps the fault.
+card), for each driver (``BY_DRIVER``). Each is a context manager that
+patches the port while it is open; a program captured inside it keeps
+the fault.
 
 - ``unchanged``: an epoch call that leaves the state as it was;
 - ``half_batch``: every step on the first half of its batch, the
@@ -13,8 +14,9 @@ The exchange between chips is not among them: every cell runs on one.
 """
 import contextlib
 
-from modl_tpu_torch.decomposition import _program, _step
+from modl_tpu_torch.decomposition import _program, _step, recsys
 from modl_tpu_torch.decomposition.dict_fact import DictFact
+from modl_tpu_torch.ops import bcd
 
 
 @contextlib.contextmanager
@@ -51,19 +53,51 @@ def half_batch():
     return patched((_step, '_step_body', half), (_program, '_step_body', half))
 
 
-def altered():
-    kernel, plain = _step.bcd_kernel, _step._bcd_plain
+def _negate_first_atom(update):
+    def run(*args, **kwargs):
+        D, cn = update(*args, **kwargs)
+        D = D.clone()
+        D[0].neg_()
+        return D, cn
+    return run
 
-    def negate(update):
-        def run(*args, **kwargs):
-            D, cn = update(*args, **kwargs)
-            D = D.clone()
-            D[0].neg_()
-            return D, cn
-        return run
-    return patched((_step, 'bcd_kernel', negate(kernel)),
-                   (_step, '_bcd_plain', negate(plain)))
+
+def altered():
+    return patched(
+        (_step, 'bcd_kernel', _negate_first_atom(_step.bcd_kernel)),
+        (_step, '_bcd_plain', _negate_first_atom(_step._bcd_plain)))
+
+
+def recsys_unchanged():
+    def epoch(*args, **kwargs):
+        pass
+    return patched((recsys, 'recsys_epoch', epoch))
+
+
+def recsys_half_batch():
+    body = recsys._recsys_batch
+
+    def half(state, cfg, idx, val, lens, rows, order, scalars):
+        b = idx.shape[0]
+        h = b // 2
+        scalars = scalars.clone()
+        scalars[2] = scalars[2] * (b / h)      # w / b -> w / h
+        return body(state, cfg, idx[:h], val[:h], lens[:h], rows[:h], order,
+                    scalars)
+    return patched((recsys, '_recsys_batch', half))
+
+
+def recsys_altered():
+    return patched(
+        (recsys, 'bcd_kernel', _negate_first_atom(recsys.bcd_kernel)),
+        (bcd, 'bcd_update_reference',
+         _negate_first_atom(bcd.bcd_update_reference)))
 
 
 FAULTS = {'unchanged': unchanged, 'half_batch': half_batch,
           'altered': altered}
+BY_DRIVER = {
+    'dict_fact': FAULTS,
+    'recsys': {'unchanged': recsys_unchanged,
+               'half_batch': recsys_half_batch, 'altered': recsys_altered},
+}

@@ -3,14 +3,13 @@
 A cell (``BENCHMARK.json``'s ``workloads``) is a configuration
 (``configs/<name>.json``: the estimator's parameters, the data's sizes
 and how the data is made) under a traffic mix (``traffic/<name>.json``:
-how the fit is driven). A run makes the data on the device from the
-seed, prepares a ``DictFact`` as ``DictFact.fit`` does (the first k rows
-handed over as the initial dictionary, the rows ingested once) and
-drives ``fit``'s epoch loop (``_partial_fit_ingested`` over the rows in
-the shuffles' composed order, then ``shuffle``):
+how the fit is driven). The configuration's driver
+(``drivers/<driver>.py``, :mod:`perfbench.drivers`) makes the data on
+the device from the seed, prepares the estimator as its ``fit`` does and
+drives ``fit``'s epoch loop:
 
 - set-up: the first ``CHECKED_EPOCHS`` epochs, which capture the
-  program and warm every shape, and whose D, C and B the plain
+  programs and warm every shape, and whose D, C and B the plain
   reference (``reference/``) recomputes after the window;
 - the window: whole epochs until ``seconds`` have passed, each ending
   in a sync;
@@ -36,20 +35,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import checks
-from .reference import somf
+from . import drivers
+# the drivers' shared names, and the dict_fact loop where callers of the
+# harness find it
+from .drivers import CHECKED_EPOCHS, EPOCH_SPAN, SHUFFLE_SPAN, sync  # noqa
+from .drivers.dict_fact import FitLoop, snapshot  # noqa: F401
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 
-# the epochs set-up runs, which the reference follows
-CHECKED_EPOCHS = 3
 # the part of a traced window under the profiler (seconds)
 TRACE_SECONDS = 3.0
 # modules that may not be loaded in a run (whole top-level names)
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'modl_tpu')
-# the harness's spans around the calls into the estimator
-EPOCH_SPAN, SHUFFLE_SPAN = 'perfbench.epoch', 'perfbench.shuffle'
 
 
 def load_json(path):
@@ -99,55 +97,8 @@ def split_seed(seed):
 
 
 def make_data(cfg, seed, device):
-    """The configuration's rows, float32 on ``device``, from ``seed``:
-    ``planted``, a low-rank model plus noise (``bench.py``'s ADHD-70
-    data: U V / divisor + noise, U and V Gaussian), or ``gaussian``."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    n, p = cfg['n_samples'], cfg['n_features']
-    kw = dict(generator=g, device=device)
-    if cfg['data'] == 'gaussian':
-        return torch.randn(n, p, **kw)
-    if cfg['data'] == 'planted':
-        r = cfg['planted_rank']
-        U = torch.randn(n, r, **kw)
-        V = torch.randn(r, p, **kw).div_(cfg['planted_divisor'])
-        X = torch.randn(n, p, **kw).mul_(cfg['planted_noise'])
-        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return X.addmm_(U, V)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
-    raise ValueError(f'unknown data {cfg["data"]!r}')
-
-
-def sync(device):
-    if torch.device(device).type == 'cuda':
-        torch.cuda.synchronize(device)
-
-
-class FitLoop:
-    """``DictFact.fit``'s epoch loop over ingested rows ``X_dev``: the
-    epoch in the shuffles' composed row order, then ``shuffle``."""
-
-    def __init__(self, est, X_dev):
-        self.est, self.X, self.rows = est, X_dev, None
-
-    def epoch(self):
-        est, X = self.est, self.X
-        with torch.profiler.record_function(EPOCH_SPAN):
-            est._partial_fit_ingested(X, None, rows=None if self.rows is None
-                                      else torch.as_tensor(self.rows,
-                                                           device=X.device))
-        with torch.profiler.record_function(SHUFFLE_SPAN):
-            perm = est.shuffle()
-        self.rows = perm if self.rows is None else self.rows[perm]
-
-
-def snapshot(est):
-    """D, C and B in the data's feature order, host copies."""
-    return (np.array(est.components_, copy=True), np.array(est.C_, copy=True),
-            np.array(est.B_, copy=True))
+    """The configuration's data, made by its driver from ``seed``."""
+    return drivers.of(cfg).make_data(cfg, seed, device)
 
 
 def run_window(loop, seconds, trace, device):
@@ -195,10 +146,12 @@ def p95(values):
 class TraceView:
     """What the per-layer metrics read from a traced window: the
     harness's epoch and shuffle spans, the device's kernels and copies
-    within the window (ns on the profiler's clock), the configuration
-    and the peaks of the device."""
+    within the window (ns on the profiler's clock), the configuration,
+    the work of the traced epochs (``work``, from the configuration's
+    driver: :mod:`perfbench.drivers`; the ``dict_fact`` driver's counts
+    of ``cfg`` where none is given) and the peaks of the device."""
 
-    def __init__(self, prof, cfg, peaks):
+    def __init__(self, prof, cfg, peaks, work=None):
         host, device = [], []
         for e in prof.profiler.kineto_results.events():
             span = (e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
@@ -211,21 +164,21 @@ class TraceView:
                 device.append(span)
         # the profiler starts at the window, after set-up's last sync: every
         # device event is the window's; the window ends at the later of
-        # the last shuffle and the last device event
+        # the last epoch or shuffle span and the last device event
         self.epochs = sorted(s[:2] for s in host if s[2] == EPOCH_SPAN)
         self.shuffles = sorted(s[:2] for s in host if s[2] == SHUFFLE_SPAN)
         self.device = sorted(device)
         self.window = None
-        if self.epochs and self.shuffles:
+        if self.epochs:
             self.window = (self.epochs[0][0],
-                           max([self.shuffles[-1][1]]
+                           max([self.epochs[-1][1]]
+                               + [e for _, e in self.shuffles[-1:]]
                                + [e for _, e, _ in self.device]))
         self.host = sorted(host)
         self.config = cfg
+        self.work = work or drivers.dict_fact.Work(cfg)
         self.peak_flops = peaks and peaks['flops']
         self.peak_bytes = peaks and peaks['bytes_per_s']
-        self.steps_per_epoch = (cfg['n_samples']
-                                // cfg['estimator']['batch_size'])
         self.busy_ns = sum(e - s for s, e in self.merged())
 
     @property
@@ -234,7 +187,16 @@ class TraceView:
 
     @property
     def steps(self):
-        return len(self.epochs) * self.steps_per_epoch
+        return self.work.steps(len(self.epochs))
+
+    def least_s(self, counts):
+        """The least seconds of ``counts`` (``(times, operations,
+        bytes)`` each) at the device's peaks: each the larger of its
+        operations over the peak rate and its bytes over the peak
+        bandwidth, times ``times``."""
+        return sum(times * max(ops / self.peak_flops,
+                               nbytes / self.peak_bytes)
+                   for times, ops, nbytes in counts)
 
     def merged(self):
         """The device's busy intervals, overlaps merged."""
@@ -313,32 +275,19 @@ def power_limit():
 
 
 def prepare(cfg, traffic, data_seed, est_seed, device):
-    """A ``DictFact`` prepared as ``DictFact.fit`` prepares it, driven
-    through the checked epochs; returns ``(loop, program)``: the
-    :class:`FitLoop` and ``[D0, (D, C, B) after each checked epoch]``."""
-    from modl_tpu_torch import DictFact
-    params = cfg['estimator']
-    X = make_data(cfg, data_seed, device)
-    est = DictFact(**params, random_state=est_seed, device=device,
-                   verbose=traffic['verbose'], n_epochs=traffic['n_epochs'])
-    est.prepare(n_samples=X.shape[0], X=X[:params['n_components']].cpu()
-                .numpy(), dtype=np.float32)
-    loop = FitLoop(est, est._ingest_features(X))
-    del X
-    program = [np.array(est.components_, copy=True)]
-    for _ in range(CHECKED_EPOCHS):
-        loop.epoch()
-        program.append(snapshot(est))
-    sync(device)
-    return loop, program
+    """The configuration's estimator prepared and driven through the
+    checked epochs by its driver; returns ``(loop, program)``: the loop
+    whose ``epoch()`` the window calls and ``[D0, (D, C, B) after each
+    checked epoch]``."""
+    return drivers.of(cfg).prepare(cfg, traffic, data_seed, est_seed,
+                                   device)
 
 
-def reference(cfg, data_seed, est_seed, device, precision='float64'):
-    """The plain reference's ``[D0, (D, C, B) after each checked
-    epoch]`` on the same data, remade from the seed."""
-    X = make_data(cfg, data_seed, device)
-    return somf.fit(X, cfg['estimator'], est_seed, CHECKED_EPOCHS,
-                    precision)
+def reference(cfg, data_seed, est_seed, device, precision=None):
+    """The plain reference on the same data, remade from the seed by the
+    driver, in ``precision`` (the driver's default where None)."""
+    kw = {} if precision is None else dict(precision=precision)
+    return drivers.of(cfg).reference(cfg, data_seed, est_seed, device, **kw)
 
 
 def free(device):
@@ -374,7 +323,8 @@ def run_cell(bench, cell, seed, seconds, trace, device, t0, cfg=None):
         for m in cell_metrics(bench, cell['name'], 'end_to_end'):
             metrics[m['name']] = dict(value=values[m['name']], unit=m['unit'])
     else:
-        view = TraceView(prof, cfg, device_peaks(info['kind']))
+        view = TraceView(prof, cfg, device_peaks(info['kind']),
+                         drivers.of(cfg).work(cfg, loop))
         del prof
         for m in cell_metrics(bench, cell['name'], 'per_layer'):
             value = metric_reader(m['name'])(view)
@@ -389,8 +339,8 @@ def run_cell(bench, cell, seed, seconds, trace, device, t0, cfg=None):
     free(device)
     if info['platform'] == 'gpu':
         info['power_limit_w'] = power_limit()
-    numbers = checks.compare(program, reference(cfg, data_seed, est_seed,
-                                                device))
+    numbers = drivers.of(cfg).compare(program, reference(
+        cfg, data_seed, est_seed, device))
     compared = {name: (numbers[name], limits[name]) for name in limits}
     result = dict(correct=all(v <= lim for v, lim in compared.values()),
                   attempted=n_epochs, failed=0, metrics=metrics, device=info)

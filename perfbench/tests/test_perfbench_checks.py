@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import checks, faults, harness
+from perfbench import checks, drivers, faults, harness
 from perfbench.reference import somf
 
 CELLS = [w['name'] for w in harness.load_benchmark()['workloads']]
@@ -90,7 +90,10 @@ def test_sound_run_is_correct(bench, small, cell):
 @pytest.mark.parametrize('fault', sorted(faults.FAULTS))
 @pytest.mark.parametrize('cell', CELLS)
 def test_planted_fault_is_not_correct(bench, small, cell, fault):
-    with faults.FAULTS[fault]():
+    """Each fault of the cell's driver (``faults.BY_DRIVER``)."""
+    cfg = harness.load_config(bench, harness.find(bench['workloads'],
+                                                  cell)['config'])
+    with faults.BY_DRIVER[drivers.name(cfg)][fault]():
         result, compared = run_small(bench, small, cell)
     assert not result['correct'], compared
 
@@ -101,12 +104,13 @@ def test_control_is_not_correct(bench, small, cell):
     limits."""
     entry = harness.find(bench['workloads'], cell)
     cfg = small(bench, entry['config'])
+    driver = drivers.of(cfg)
     limits = harness.load_limits(cell)
     for seed in (11, 12, 13):
         data_seed, est_seed = harness.split_seed(seed)
         ref = harness.reference(cfg, data_seed, est_seed, 'cpu')
         control = harness.reference(cfg, data_seed, est_seed, 'cpu', 'tf32')
-        numbers = checks.compare(control, ref)
+        numbers = driver.compare(control, ref)
         assert any(numbers[n] > lim for n, lim in limits.items()), numbers
 
 

@@ -114,7 +114,7 @@ def test_reference_imports_nothing_of_the_port():
                 assert name.split('.')[0] in ('numpy', 'torch', 'math'), \
                     f'{path.name} imports {name}'
     code = (f'import sys; sys.path.insert(0, {str(ROOT)!r}); '
-            'import perfbench.reference.somf; '
+            'import perfbench.reference.somf, perfbench.reference.recsys; '
             'print(sorted({m.split(".")[0] for m in sys.modules} & '
             '{"modl_tpu_torch", "modl_tpu", "jax"}))')
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,

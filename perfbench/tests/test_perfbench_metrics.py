@@ -5,7 +5,8 @@ from types import SimpleNamespace
 
 import pytest
 
-from perfbench import harness
+from perfbench import drivers, harness
+from perfbench.drivers import dict_fact
 from perfbench.metrics import (bcd_roofline, ema_gemm_roofline,
                                epoch_call_idle_ms, epoch_mfu, idle_share,
                                shuffle_ms, step_other_ms)
@@ -21,10 +22,10 @@ def cfgs(bench):
 
 def test_bcd_counts(cfgs):
     # k = 70, s = 60,000 / 12 = 5,000
-    assert bcd_roofline.counts(cfgs['adhd70']) == (
+    assert dict_fact.bcd_counts(cfgs['adhd70']) == (
         98_000_000, 4 * (1_050_000 + 4900 + 210))
     # k = 1,024, s = 200,000 / 20 = 10,000
-    assert bcd_roofline.counts(cfgs['hcp1024']) == (
+    assert dict_fact.bcd_counts(cfgs['hcp1024']) == (
         41_943_040_000, 4 * (30_720_000 + 1_048_576 + 3072))
 
 
@@ -39,14 +40,35 @@ def test_epoch_counts(cfgs):
     # a step: 2bsk + 2sk^2 + k^3/3 + 2bk^2 + 2bk^2 + 2bkn + 4k^2 s
     adhd = (70_000_000 + 49_000_000 + 343_000 / 3 + 980_000 + 980_000
             + 840_000_000 + 98_000_000)
-    ops, nbytes = epoch_mfu.counts(cfgs['adhd70'])
+    ops, nbytes = dict_fact.epoch_counts(cfgs['adhd70'])
     assert ops == pytest.approx(20 * adhd, rel=1e-12)
     assert nbytes == 4 * (120_000_000 + 16_800_000)
     hcp = (4_096_000_000 + 20_971_520_000 + 1_073_741_824 / 3
            + 419_430_400 + 419_430_400 + 81_920_000_000 + 41_943_040_000)
-    ops, nbytes = epoch_mfu.counts(cfgs['hcp1024'])
+    ops, nbytes = dict_fact.epoch_counts(cfgs['hcp1024'])
     assert ops == pytest.approx(6 * hcp, rel=1e-12)
     assert nbytes == 4 * (240_000_000 + 819_200_000)
+
+
+@pytest.mark.parametrize('config, steps, bcd, epoch', [
+    ('adhd70', 20, (98_000_000, 4_220_440),
+     (20 * 1_059_074_333.3333334, 547_200_000)),
+    ('hcp1024', 6, (41_943_040_000, 127_086_592),
+     (6 * 150_127_334_741.33334, 4_236_800_000)),
+])
+def test_shares_take_the_drivers_counts(cfgs, config, steps, bcd, epoch):
+    """``bcd_roofline`` and ``epoch_mfu`` read the ``dict_fact`` driver's
+    work, which holds the counts these metrics used before the drivers:
+    over 3 traced epochs, 3 epochs' steps of one step's update and 3 of
+    one epoch's."""
+    cfg = cfgs[config]
+    assert drivers.name(cfg) == 'dict_fact'
+    work = drivers.of(cfg).work(cfg, None)
+    assert work.steps(3) == 3 * steps
+    assert work.bcd(3) == [(3 * steps,) + bcd]
+    ((times, ops, nbytes),) = work.epoch(3)
+    assert times == 3 and nbytes == epoch[1]
+    assert ops == pytest.approx(epoch[0], rel=1e-12)
 
 
 def view(cfg, device, epochs, shuffles, peaks=PEAKS):
@@ -54,14 +76,14 @@ def view(cfg, device, epochs, shuffles, peaks=PEAKS):
     v = SimpleNamespace(config=cfg, device=sorted(device), epochs=epochs,
                         shuffles=shuffles, peak_flops=peaks['flops'],
                         peak_bytes=peaks['bytes_per_s'],
-                        steps_per_epoch=(cfg['n_samples']
-                                         // cfg['estimator']['batch_size']))
-    v.steps = len(epochs) * v.steps_per_epoch
+                        work=dict_fact.Work(cfg))
+    v.steps = v.work.steps(len(epochs))
     v.window = (epochs[0][0], shuffles[-1][1])
     v.window_ns = v.window[1] - v.window[0]
     v.busy_ns = sum(e - s for s, e, _ in device)
     v.kernel_ns = lambda p: harness.TraceView.kernel_ns(v, p)
     v.merged = lambda: harness.TraceView.merged(v)
+    v.least_s = lambda counts: harness.TraceView.least_s(v, counts)
     return v
 
 
@@ -88,13 +110,13 @@ def test_readers_on_a_made_up_window(cfgs):
     assert epoch_call_idle_ms.read(v) == pytest.approx(8.9)
     assert step_other_ms.read(v) == pytest.approx(5.1 / 20)
     assert idle_share.read(v) == pytest.approx(100 * (1 - 42.2 / 62))
-    ops, nbytes = bcd_roofline.counts(cfg)
+    ops, nbytes = dict_fact.bcd_counts(cfg)
     least = max(ops / 495e12, nbytes / 3.35e12)
     assert bcd_roofline.read(v) == pytest.approx(100 * least / 0.75e-3)
     ops, nbytes = ema_gemm_roofline.counts(cfg)
     least = max(ops / 495e12, nbytes / 3.35e12)
     assert ema_gemm_roofline.read(v) == pytest.approx(100 * least / 1e-3)
-    ops, nbytes = epoch_mfu.counts(cfg)
+    ops, nbytes = dict_fact.epoch_counts(cfg)
     least = max(ops / 495e12, nbytes / 3.35e12)
     assert epoch_mfu.read(v) == pytest.approx(100 * least / 31e-3)
 
@@ -114,7 +136,7 @@ def test_readers_find_nothing_where_nothing_ran(cfgs):
 def test_shares_stay_below_the_peak_at_the_least_time(cfgs):
     """A kernel that took exactly the least time reads 100%."""
     cfg = cfgs['hcp1024']
-    ops, nbytes = bcd_roofline.counts(cfg)
+    ops, nbytes = dict_fact.bcd_counts(cfg)
     least_ns = math.ceil(max(ops / 495e12, nbytes / 3.35e12) * 1e9)
     v = view(cfg, [(0, least_ns * 6, 'bcd_kernel')],
              epochs=[(0, least_ns * 6)], shuffles=[(0, least_ns * 6)])

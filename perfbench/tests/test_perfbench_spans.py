@@ -107,3 +107,20 @@ def test_idle_reader_counts_a_span_split_by_kernels():
               event('perfbench.shuffle', 20 * US, 21 * US)]
     view = harness.TraceView(trace(events), CFG, None)
     assert run_idle_ms.read(view) == pytest.approx(0.004)
+
+
+def test_window_ends_at_the_last_epoch_or_shuffle_or_device_event():
+    """The window runs from the first epoch's start to the latest of the
+    last epoch span, the last shuffle span and the last device event: a
+    driver without shuffle spans (``recsys``) still has one, and the
+    fused epochs' window is as before (it ends at their last shuffle)."""
+    no_shuffle = [event('perfbench.epoch', 0, 10 * MS),
+                  event('k1', 2 * MS, 4 * MS, 'CUDA'),
+                  event('perfbench.epoch', 10 * MS, 20 * MS),
+                  event('k2', 12 * MS, 14 * MS, 'CUDA')]
+    view = harness.TraceView(trace(no_shuffle), CFG, None)
+    assert view.window == (0, 20 * MS) and view.shuffles == []
+    late = no_shuffle + [event('k3', 19 * MS, 21 * MS, 'CUDA')]
+    assert harness.TraceView(trace(late), CFG, None).window == (0, 21 * MS)
+    fused = epoch(0, wait=True) + epoch(31 * MS, wait=False)
+    assert harness.TraceView(trace(fused), CFG, None).window == (0, 62 * MS)
